@@ -1,0 +1,71 @@
+"""The port stands without JAX: every module of pecos_tpu_torch, and
+chip_smoke.py, import with jax blocked; nothing runs on a CUDA path without a
+GPU or without nvcc."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from pecos_tpu_torch.ops import _build
+from pecos_tpu_torch.utils.torch_util import make_generator, resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import pecos_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(pecos_tpu_torch.__path__, "pecos_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # the module only: main() runs under __main__
+leaked = sorted(m for m in sys.modules if m == "pecos_tpu" or m.startswith("pecos_tpu."))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def _run(args, cwd):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True, timeout=120)
+
+
+def test_port_imports_without_jax():
+    proc = _run(["-c", _IMPORT_ALL], cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 14  # every module of the package was walked
+
+
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run")
+    proc = _run(["chip_smoke.py"], cwd=REPO)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    # alone in a directory, without the package beside it
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(force=True)
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            resolve_device("cuda")
+    a = torch.rand(4, generator=make_generator(3))
+    assert torch.equal(a, torch.rand(4, generator=make_generator(3)))
