@@ -17,15 +17,29 @@ non-zero:
              top 20), checked for shape, K1 launches and agreement with the
              same model on the CPU.
 6. numbers — end-to-end QPS, compute ms per 1,024-query batch, peak memory.
+7. wire    — the same predict on the float16, bfloat16 and uint8 query wires:
+             K1 launches, agreement with the CPU on the same wire, top-20
+             agreement with the float32 run, QPS of float32/float16/uint8 in turns.
+8. realtime — a batch-1 RealtimeSession: 256 single-query calls against
+             phase 5's rows, K1 launches per call, p50/p99 call latency and
+             the on-device latency of one beam walk.
+9. compiled — save_compiled_layers of the phase-5 model to a temporary
+             directory; load_compiled_layers eager (labels of 1,024 queries
+             equal phase 5's) and lazy with every layer streamed (agreement
+             with eager; peak memory below the resident layers' bytes).
 
-The line before the last is a JSON object describing each kernel of the path;
-the last line is {"ok": true, "device": {...}}.
+Every K1 launch of a phase's run is counted with the count set to 0 just
+before it.  The line before the last is a JSON object describing each kernel
+of the path; the last line is {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -66,14 +80,18 @@ def make_k1_case(N, K, P, Qn, D_feat, pad, seed):
 
 # (name, N, K, P, Qn, pad, bias): the predict path's shape with and without the
 # bias term, a ragged shape, a query longer than one shared-memory chunk (512),
-# and padded rows
+# padded rows, and the batch-1 realtime session's shape
 K1_CASES = [
     ("main+bias", 1024, 160, 64, 256, False, True),
     ("main", 1024, 160, 64, 256, False, False),
     ("ragged", 3, 37, 8, 5, True, True),
     ("long-query", 8, 37, 64, 4096, True, True),
     ("padded", 64, 160, 64, 256, True, True),
+    ("batch-1", 1, 160, 64, 256, False, True),
 ]
+WIRE_DTYPES = ("float16", "bfloat16", "uint8")
+N_REALTIME, REALTIME_CAP = 256, 256
+N_COMPILED = 1024
 
 
 def check_k1(device, cases=K1_CASES):
@@ -107,15 +125,16 @@ def check_k1(device, cases=K1_CASES):
     return worst
 
 
-def time_k1(device, iters=20):
+def time_k1(device, N=1024, iters=20):
     """Median ms of the kernel and of the plain version at the predict path's
-    shape, timed with CUDA events in alternating turns."""
+    shape (N queries, K=160, P=64, Qn=256), timed with CUDA events in
+    alternating turns."""
     import torch
 
     from pecos_tpu_torch.ops.intersect import intersect_scores, intersect_scores_reference
 
     D_feat = 1024
-    qids, qvals, w = make_k1_case(1024, 160, 64, 256, D_feat, False, seed=1)
+    qids, qvals, w = make_k1_case(N, 160, 64, 256, D_feat, False, seed=1)
     args = [torch.from_numpy(a).to(device) for a in (qids, qvals, w)] + [D_feat, 1.0]
     fns = {"kernel": intersect_scores, "plain": intersect_scores_reference}
     for fn in fns.values():  # warm
@@ -179,9 +198,9 @@ def ranked(P, k):
     return P.indices.reshape(-1, k), P.data.reshape(-1, k)
 
 
-def check_predict(P, P_cpu, n_labels, n_queries, n_plabel, batch, launches):
-    """Shape, launch count and CPU agreement checks of phase 5; returns the
-    label agreement share."""
+def check_predict(P, P_cpu, n_labels, n_queries, n_plabel, batch, launches, what="predict"):
+    """Shape, launch count and CPU agreement checks of a full-width predict
+    run; returns the label agreement share."""
     if P.shape != (n_queries, n_labels):
         raise RuntimeError(f"prediction shape {P.shape} != {(n_queries, n_labels)}")
     labels, scores = ranked(P, TOPK)
@@ -189,17 +208,143 @@ def check_predict(P, P_cpu, n_labels, n_queries, n_plabel, batch, launches):
         raise RuntimeError("labels out of range or scores not finite")
     want_launches = n_plabel * -(-n_queries // batch)
     if launches != want_launches:
-        raise RuntimeError(f"K1 launched {launches} times in the predict run, expected {want_launches}")
+        raise RuntimeError(f"{what}: K1 launched {launches} times, expected {want_launches}")
     c_labels, c_scores = ranked(P_cpu, TOPK)
     n_cpu = c_labels.shape[0]
-    same = labels[:n_cpu] == c_labels
+    return check_agreement(labels[:n_cpu], scores[:n_cpu], c_labels, c_scores, f"{what}: label agreement with the CPU run on {n_cpu} queries")
+
+
+def check_agreement(labels, scores, want_labels, want_scores, what):
+    """Share of equal (row, rank) labels, which must be >= 0.995, and scores
+    of the equal ones within rtol=1e-4 (float32 sums in another order)."""
+    same = labels == want_labels
     agree = float(same.mean())
-    print(f"predict: label agreement with the CPU run on {n_cpu} queries: {agree!r}")
+    print(f"{what}: {agree!r}")
     if agree < 0.995:
-        raise RuntimeError(f"label agreement {agree!r} < 0.995")
-    if not np.allclose(scores[:n_cpu][same], c_scores[same], rtol=1e-4, atol=0.0):
-        raise RuntimeError("scores of agreeing labels differ beyond rtol=1e-4")
+        raise RuntimeError(f"{what}: {agree!r} < 0.995")
+    if not np.allclose(scores[same], want_scores[same], rtol=1e-4, atol=0.0):
+        raise RuntimeError(f"{what}: scores of agreeing labels differ beyond rtol=1e-4")
     return agree
+
+
+def topk_overlap(P, Q, k=TOPK):
+    """Mean share of each row's top-k labels in Q that P's top-k also holds."""
+    a, b = np.sort(ranked(P, k)[0], axis=1), np.sort(ranked(Q, k)[0], axis=1)
+    hits = sum(int(np.isin(x, y, assume_unique=True).sum()) for x, y in zip(a, b))
+    return hits / a.size
+
+
+def run_wire(xlm, xlm_cpu, X, P32, n_plabel, smi, kw):
+    """Phase 7: predict on each compressed wire; returns (K1 launches by wire,
+    QPS of float32/float16/uint8 measured in turns)."""
+    from pecos_tpu_torch.ops.intersect import intersect_scores
+
+    launches = {}
+    for dt in WIRE_DTYPES:
+        intersect_scores.launches = 0
+        P = xlm.predict(X, wire_value_dtype=dt, **kw)
+        launches[dt] = intersect_scores.launches
+        P_cpu = xlm_cpu.predict(X[:N_CPU_CHECK], wire_value_dtype=dt, **kw)
+        check_predict(P, P_cpu, L, N_QUERIES, n_plabel, BATCH, launches[dt], what=f"wire {dt}")
+        print(f"wire {dt} [{smi}]: K1 launches {launches[dt]}, top-{TOPK} agreement with the float32 run "
+              f"{topk_overlap(P, P32)!r}")
+    best = {dt: float("inf") for dt in ("float32", "float16", "uint8")}
+    for rep in range(3):
+        for dt in (list(best) if rep % 2 == 0 else list(best)[::-1]):
+            t0 = time.perf_counter()
+            xlm.predict(X, wire_value_dtype=dt, **kw)
+            best[dt] = min(best[dt], time.perf_counter() - t0)
+    qps = {dt: N_QUERIES / t for dt, t in best.items()}
+    for dt, q in qps.items():
+        print(f"wire {dt} [{smi}]: end-to-end {q!r} QPS (best of 3 in turns, {best[dt]!r} s for {N_QUERIES} queries)")
+    return launches, qps
+
+
+def run_realtime(xlm, X, P5, n_plabel, smi, kw):
+    """Phase 8: a batch-1 session; returns (K1 launches, latency numbers)."""
+    from pecos_tpu_torch.ops.intersect import intersect_scores
+
+    sess = xlm.realtime_session(batch=1, cap=REALTIME_CAP, **kw)
+    lat_ms, rows = [], []
+    intersect_scores.launches = 0
+    for i in range(N_REALTIME):
+        t0 = time.perf_counter()
+        Pi = sess.predict(X[i])
+        lat_ms.append((time.perf_counter() - t0) * 1000.0)
+        rows.append(ranked(Pi, TOPK))
+    launches = intersect_scores.launches
+    if launches != n_plabel * N_REALTIME:
+        raise RuntimeError(f"realtime: K1 launched {launches} times in {N_REALTIME} calls, expected {n_plabel} a call")
+    labels, scores = np.vstack([r[0] for r in rows]), np.vstack([r[1] for r in rows])
+    want_labels, want_scores = ranked(P5[:N_REALTIME], TOPK)
+    print(f"realtime: rows equal to phase 5's: {int((labels == want_labels).all(axis=1).sum())} of {N_REALTIME}")
+    check_agreement(labels, scores, want_labels, want_scores, "realtime: label agreement with phase 5")
+    p50, p99 = (float(v) for v in np.percentile(lat_ms, [50, 99]))
+    on_device = sess.on_device_latency_ms(X[:1], iters=32)
+    print(f"realtime [{smi}]: batch-1 call latency p50 {p50!r} ms, p99 {p99!r} ms ({N_REALTIME} calls); "
+          f"on-device {on_device!r} ms per beam walk (32 chained walks, CUDA events); "
+          f"K1 launches per call {launches // N_REALTIME}")
+    return launches, {"p50_ms": p50, "p99_ms": p99, "on_device_ms": on_device}
+
+
+def run_compiled(compiled, X, P5, n_plabel, smi, kw, device):
+    """Phase 9: compiled folder saved, loaded eager and lazy; returns K1
+    launches of the eager and the lazy predict."""
+    import torch
+
+    from pecos_tpu_torch.ops.intersect import intersect_scores
+    from pecos_tpu_torch.xmc.inference import build_parent_packed, load_compiled_layers, save_compiled_layers
+
+    Xq = X[:N_COMPILED]
+    want_labels, want_scores = ranked(P5[:N_COMPILED], TOPK)
+    layer_bytes = sum(l.nbytes for l in compiled.layers)
+    with tempfile.TemporaryDirectory(prefix="pecos_compiled_") as folder:
+        t0 = time.perf_counter()
+        save_compiled_layers(compiled.layers, compiled.bias, compiled.nr_features, folder)
+        save_s = time.perf_counter() - t0
+        file_bytes = sum(os.path.getsize(os.path.join(folder, f)) for f in os.listdir(folder))
+        t0 = time.perf_counter()
+        eager = load_compiled_layers(folder, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        intersect_scores.launches = 0
+        P_eager = eager.predict(Xq, **kw)
+        eager_launches = intersect_scores.launches
+        if eager_launches != n_plabel:
+            raise RuntimeError(f"compiled eager: K1 launched {eager_launches} times, expected {n_plabel}")
+        e_labels, e_scores = ranked(P_eager, TOPK)
+        if not np.array_equal(e_labels, want_labels):
+            raise RuntimeError(f"compiled eager: {int((e_labels != want_labels).sum())} labels differ from phase 5")
+        del eager, P_eager
+        gc.collect()
+        with np.load(os.path.join(folder, f"layer_{compiled.depth - 1}.npz")) as z:
+            packed, children = z["packed"], z["children"]
+        t0 = time.perf_counter()
+        build_parent_packed(packed, children)
+        pp_s = time.perf_counter() - t0
+        del packed, children
+        t0 = time.perf_counter()
+        lazy = load_compiled_layers(folder, lazy=True, resident_budget_bytes=0, device=device)
+        lazy_load_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        intersect_scores.launches = 0
+        t0 = time.perf_counter()
+        P_lazy = lazy.predict(Xq, **kw)
+        lazy_s = time.perf_counter() - t0
+        lazy_launches = intersect_scores.launches
+        lazy_peak = torch.cuda.max_memory_allocated() - base
+    check_agreement(*ranked(P_lazy, TOPK), e_labels, e_scores, f"compiled lazy: label agreement with eager on {N_COMPILED} queries")
+    x_bytes = N_COMPILED * (D + 1) * 4
+    print(f"compiled [{smi}]: save {save_s!r} s ({file_bytes} bytes on disk), eager load {load_s!r} s, "
+          f"lazy open {lazy_load_s!r} s, parent_packed rebuild of the last layer {pp_s!r} s (host)")
+    print(f"compiled [{smi}]: lazy predict of {N_COMPILED} queries {lazy_s!r} s, every layer streamed; peak device "
+          f"memory above the start {lazy_peak} bytes = query block {x_bytes} + {lazy_peak - x_bytes} "
+          f"(resident layers of the eager model: {layer_bytes} bytes); K1 launches eager {eager_launches}, lazy {lazy_launches}")
+    if lazy_peak - x_bytes >= layer_bytes:
+        raise RuntimeError(f"compiled lazy: peak minus the query block {lazy_peak - x_bytes} >= resident layers {layer_bytes}")
+    return eager_launches, lazy_launches
 
 
 def main():
@@ -237,6 +382,9 @@ def main():
     k_ms, plain_ms = time_k1(device)
     print(f"K1 timing (N=1024 K=160 P=64 Qn=256, median of 20, CUDA events): kernel {k_ms!r} ms, "
           f"plain {plain_ms!r} ms [{smi}]")
+    k1_ms, plain1_ms = time_k1(device, N=1)
+    print(f"K1 timing (N=1 K=160 P=64 Qn=256, median of 20, CUDA events): kernel {k1_ms!r} ms, "
+          f"plain {plain1_ms!r} ms [{smi}]")
 
     # 5. full-width predict
     t0 = time.perf_counter()
@@ -256,7 +404,8 @@ def main():
     P = xlm.predict(X, **kw)
     launches = intersect_scores.launches
     peak_bytes = torch.cuda.max_memory_allocated()
-    P_cpu = xlinear(Ws, Cs, "cpu").predict(X[:N_CPU_CHECK], **kw)
+    xlm_cpu = xlinear(Ws, Cs, "cpu")
+    P_cpu = xlm_cpu.predict(X[:N_CPU_CHECK], **kw)
     check_predict(P, P_cpu, L, N_QUERIES, n_plabel, BATCH, launches)
     print(f"predict: {N_QUERIES} queries -> {P.shape}, {P.nnz} entries, K1 launches {launches}")
 
@@ -287,10 +436,26 @@ def main():
           f"(K1 {n_plabel} x {k_ms!r} ms of it)")
     print(f"numbers [{smi}]: peak device memory {peak_bytes} bytes in the predict run")
 
+    # 7. the compressed query wires
+    wire_launches, _ = run_wire(xlm, xlm_cpu, X, P, n_plabel, smi, kw)
+    del xlm_cpu
+    gc.collect()
+
+    # 8. realtime session, batch 1
+    realtime_launches, _ = run_realtime(xlm, X, P, n_plabel, smi, kw)
+
+    # 9. compiled folder, eager and lazy
+    eager_launches, lazy_launches = run_compiled(compiled, X, P, n_plabel, smi, kw, device)
+
     print(f"gpu: {smi}")
     kernels = [{
         "name": "intersect_scores", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": plain_ms,
+        "batch1_ms": k1_ms, "batch1_plain_ms": plain1_ms,
+        "launches_by_path": {
+            "predict": launches, **{f"wire_{dt}": n for dt, n in wire_launches.items()},
+            "realtime": realtime_launches, "compiled_eager": eager_launches, "compiled_lazy": lazy_launches,
+        },
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

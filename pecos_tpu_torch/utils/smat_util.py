@@ -1,15 +1,15 @@
 """Sparse-matrix I/O, top-k CSR helpers and ranking metrics (numpy/scipy).
 
-The subset of ``pecos_tpu/utils/smat_util.py`` that the predict path and its
-CLI use, with the same on-disk formats: ``.npz`` (scipy sparse) for sparse and
-``.npy`` for dense matrices.
+The subset of ``pecos_tpu/utils/smat_util.py`` that the predict path, its
+CLIs and model surgery use, with the same on-disk formats: ``.npz`` (scipy
+sparse) for sparse and ``.npy`` for dense matrices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import scipy.sparse as smat
@@ -80,6 +80,31 @@ def csr_from_topk_arrays(indices: np.ndarray, values: np.ndarray, num_cols: int)
     mask = indices != -1
     indptr = np.concatenate([[0], np.cumsum(mask.sum(axis=1))])
     return smat.csr_matrix((values[mask], indices[mask], indptr), shape=(indices.shape[0], num_cols))
+
+
+def binarized(X: smat.spmatrix) -> smat.csr_matrix:
+    """CSR copy of X with every stored entry set to 1."""
+    X = X.tocsr(copy=True)
+    X.data[:] = 1.0
+    return X
+
+
+def hstack_csc(mats: Sequence[smat.spmatrix]) -> smat.csc_matrix:
+    return smat.hstack([m.tocsc() for m in mats], format="csc")
+
+
+def block_diag_csc(mats: Sequence[smat.spmatrix]) -> smat.csc_matrix:
+    return smat.block_diag([m.tocsc() for m in mats], format="csc")
+
+
+def get_sparsified_coo(coo: smat.coo_matrix, selected_rows, selected_cols) -> smat.coo_matrix:
+    """COO of the same shape keeping only entries in selected rows x selected cols."""
+    row_ok = np.zeros(coo.shape[0], bool)
+    row_ok[np.asarray(selected_rows, dtype=np.int64)] = True
+    col_ok = np.zeros(coo.shape[1], bool)
+    col_ok[np.asarray(selected_cols, dtype=np.int64)] = True
+    keep = row_ok[coo.row] & col_ok[coo.col]
+    return smat.coo_matrix((coo.data[keep], (coo.row[keep], coo.col[keep])), shape=coo.shape)
 
 
 @dataclasses.dataclass

@@ -1,8 +1,10 @@
 """XLinearModel: user-facing facade over HierarchicalMLModel (predict side).
 
 Reads and writes the same model folder as ``pecos_tpu.xmc.xlinear.XLinearModel``:
-``param.json`` + ``ranker/`` (a HierarchicalMLModel folder).  Training is not
-ported yet (ROADMAP.md).
+``param.json`` + ``ranker/`` (a HierarchicalMLModel folder), and the compiled
+predict-only folder of ``compile_mmap_model``: ``param.json`` + ``compiled/``
+(``compiled.json`` + ``layer_{d}.npz``).  Training is not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import scipy.sparse as smat
 import pecos_tpu_torch
 from pecos_tpu_torch.utils import smat_util
 from pecos_tpu_torch.utils.torch_util import DeviceLike
-from pecos_tpu_torch.xmc import HierarchicalMLModel
+from pecos_tpu_torch.xmc import HierarchicalMLModel, MLModel
+from pecos_tpu_torch.xmc.base import PredictOnlyHierModel
+from pecos_tpu_torch.xmc.inference import load_compiled_layers, save_compiled_layers
 
 
 class XLinearModel(pecos_tpu_torch.BaseClass):
@@ -33,8 +37,8 @@ class XLinearModel(pecos_tpu_torch.BaseClass):
                 self.hlm_args.override_with_kwargs(pred_kwargs)
             return self
 
-    def __init__(self, model: Optional[HierarchicalMLModel] = None):
-        self.model = model
+    def __init__(self, model=None):
+        self.model = model  # HierarchicalMLModel or PredictOnlyHierModel
 
     @property
     def nr_labels(self):
@@ -44,24 +48,37 @@ class XLinearModel(pecos_tpu_torch.BaseClass):
     def device(self):
         return self.model.device
 
-    def save(self, model_folder: str):
-        os.makedirs(model_folder, exist_ok=True)
-        with open(os.path.join(model_folder, "param.json"), "w", encoding="utf-8") as f:
+    def _write_param(self, folder: str):
+        os.makedirs(folder, exist_ok=True)
+        with open(os.path.join(folder, "param.json"), "w", encoding="utf-8") as f:
             f.write(json.dumps(self.append_meta({}), indent=True))
+
+    def save(self, model_folder: str):
+        self._write_param(model_folder)
         self.model.save(os.path.join(model_folder, "ranker"))
 
     @classmethod
     def load(
         cls, model_folder: str, is_predict_only: bool = False, device: DeviceLike = "cuda"
     ) -> "XLinearModel":
-        if is_predict_only and os.path.exists(os.path.join(model_folder, "compiled", "compiled.json")):
-            raise NotImplementedError(
-                "loading the compiled predict-only layout (load_compiled_layers / "
-                "PredictOnlyHierModel / MmapCompiledHierModel) is not ported yet; see ROADMAP.md"
-            )
+        """A model folder, or with ``is_predict_only`` a compiled folder when
+        one is there (a :class:`PredictOnlyHierModel`), on ``device``."""
+        compiled = os.path.join(model_folder, "compiled")
+        if is_predict_only and os.path.exists(os.path.join(compiled, "compiled.json")):
+            return cls(PredictOnlyHierModel(load_compiled_layers(compiled, device=device)))
         return cls(
             HierarchicalMLModel.load(os.path.join(model_folder, "ranker"), is_predict_only, device=device)
         )
+
+    @classmethod
+    def compile_mmap_model(cls, npz_folder: str, mmap_folder: str):
+        """Compile a saved model folder into the predict-only layout that
+        ``load(..., is_predict_only=True)`` reads.  The layouts are built on
+        the CPU: compiling needs no GPU."""
+        hlm = cls.load(npz_folder, device="cpu").model
+        compiled = hlm._get_compiled()
+        save_compiled_layers(compiled.layers, compiled.bias, compiled.nr_features, os.path.join(mmap_folder, "compiled"))
+        cls()._write_param(mmap_folder)
 
     @staticmethod
     def load_feature_matrix(path: str, dtype=np.float32):
@@ -72,7 +89,8 @@ class XLinearModel(pecos_tpu_torch.BaseClass):
         return smat_util.load_label_matrix(path, dtype=dtype)
 
     def predict(self, X, pred_params=None, **kwargs) -> smat.csr_matrix:
-        """Beam-search predict; kwargs: beam_size, only_topk, post_processor."""
+        """Beam-search predict; kwargs: beam_size, only_topk, post_processor,
+        wire_value_dtype, csr_codes."""
         return self.model.predict(
             X,
             csr_codes=kwargs.pop("csr_codes", None),
@@ -80,5 +98,44 @@ class XLinearModel(pecos_tpu_torch.BaseClass):
             **kwargs,
         )
 
+    def predict_on_selected_outputs(self, X, selected_outputs_csr, **kwargs):
+        return self.model.predict_on_selected_outputs(X, selected_outputs_csr, **kwargs)
+
+    def realtime_session(self, **kwargs):
+        """Open a persistent low-latency predict session (inference.RealtimeSession)."""
+        return self.model.realtime_session(**kwargs)
+
+    def set_output_constraint(self, labels_to_keep):
+        """Prune the tree so that predict returns only the given labels."""
+        self.model.set_output_constraint(labels_to_keep)
+
+    def get_submodel_rooted_at(self, given_depth, child_node_id, reindex=False):
+        return self.model.get_submodel_rooted_at(given_depth, child_node_id, reindex)
+
+    def split_model_at_depth(self, given_depth, reindex=False):
+        return self.model.split_model_at_depth(given_depth, reindex)
+
     def get_pred_params(self) -> "XLinearModel.PredParams":
         return self.PredParams(hlm_args=self.model.get_pred_params())
+
+    @classmethod
+    def reconstruct_model(cls, meta_model, sub_models) -> "XLinearModel":
+        """One chain from a meta (upper-tree) model and per-subtree child
+        models of equal depth: each layer below the meta model stacks the sub
+        models' W side by side and their C block-diagonally, in subtree order."""
+        meta = meta_model.model if isinstance(meta_model, XLinearModel) else meta_model
+        subs = [m.model if isinstance(m, XLinearModel) else m for m in sub_models]
+        if any(s.depth != subs[0].depth for s in subs):
+            raise ValueError("all sub models must share depth")
+        chain = list(meta.model_chain)
+        for layers in zip(*(s.model_chain for s in subs)):
+            chain.append(
+                MLModel(
+                    W=smat_util.hstack_csc([m.W for m in layers]),
+                    C=smat_util.block_diag_csc([m.C for m in layers]),
+                    bias=layers[0].bias,
+                    pred_params=layers[0].get_pred_params(),
+                    device=meta.device,
+                )
+            )
+        return cls(HierarchicalMLModel(chain))

@@ -170,8 +170,8 @@ def test_prepare_queries_padded_pads_with_d_plus_one():
 
 def test_predict_input_errors():
     _, tm, X, _ = _models("scatter")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.predict(X, wire_value_dtype="float16")
+    with pytest.raises(ValueError, match="unknown wire_value_dtype"):
+        tm.predict(X, wire_value_dtype="float64")
     with pytest.raises(ValueError, match="Feature dimension"):
         tm.predict(X[:, :-1])
     with pytest.raises(ValueError, match="unknown post_processor"):

@@ -91,9 +91,13 @@ def test_cuda_without_gpu_raises(jax_model_folder):
 
 
 def test_unported_paths_raise(jax_model_folder):
-    folder, X, _ = jax_model_folder
+    """csr_codes (a starting beam over the top layer's codes) predicts the JAX
+    package's labels; the mesh kwarg (multi-device) still raises."""
+    folder, X, Y = jax_model_folder
     port = XLinearModel.load(folder, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.predict(X, csr_codes=smat.csr_matrix((X.shape[0], 2), dtype=np.float32))
+    n_codes = port.model.nr_codes
+    codes = smat.csr_matrix(np.tile(np.arange(1, n_codes + 1, dtype=np.float32) / n_codes, (X.shape[0], 1)))
+    kw = dict(csr_codes=codes, beam_size=4, only_topk=5)
+    _assert_same(JaxXLinear.load(folder).predict(X, **kw), port.predict(X, **kw), Y)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.predict(X, mesh=object())
