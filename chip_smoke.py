@@ -27,6 +27,16 @@ non-zero:
              directory; load_compiled_layers eager (labels of 1,024 queries
              equal phase 5's) and lazy with every layer streamed (agreement
              with eager; peak memory below the resident layers' bytes).
+10. train  — (a) the Newton-CG solvers on the card against the port on the
+             CPU (solve_block_coded, solve_cluster_bucket, solve_sparse_rows
+             in both layouts) and host syncs per solve; (b) the golden fixture
+             (tests/data) indexed and trained on the card, precision held to
+             the golden run's, and once more with tfn+man negatives held to
+             the same run on the CPU; (c) the repo's matched-recall training
+             benchmark at full width (scripts/xmc_bench.py: 20,000 x 4,096
+             train, 8,192 labels, 16-way tree, leaves of 100): PIFA and the
+             clustering on the card, XLinearModel.train twice, then 4,000
+             test queries predicted through K1 (beam 10, top 10), P@1 >= 0.80.
 
 Every K1 launch of a phase's run is counted with the count set to 0 just
 before it.  The line before the last is a JSON object describing each kernel
@@ -34,6 +44,7 @@ of the path; the last line is {"ok": true, "device": {...}}.
 """
 
 import gc
+import importlib.util
 import json
 import os
 import statistics
@@ -92,6 +103,17 @@ K1_CASES = [
 WIRE_DTYPES = ("float16", "bfloat16", "uint8")
 N_REALTIME, REALTIME_CAP = 256, 256
 N_COMPILED = 1024
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# phase 10: a solve tight enough that W no longer depends on where a label's
+# stopping test lands (ROADMAP F5), so the card and the CPU agree to rounding
+TIGHT = dict(eps=1e-6, max_newton=60, cg_max=60)
+SOLVER_ATOL = 1e-3
+GOLDEN_ATOL = 0.02  # tests/test_golden.py's precision bar
+# the matched-recall benchmark (scripts/xmc_bench.py:41-100, benchmarks/README.md:23-36)
+MR_DATA = dict(n_trn=20000, n_tst=4000, d=4096, L=8192, seed=7)
+MR_INDEX = dict(nr_splits=16, max_leaf_size=100)
+MR_BEAM, MR_TOPK, MR_MIN_P1 = 10, 10, 0.80
 
 
 def check_k1(device, cases=K1_CASES):
@@ -347,6 +369,192 @@ def run_compiled(compiled, X, P5, n_plabel, smi, kw, device):
     return eager_launches, lazy_launches
 
 
+class SolveCounter:
+    """Counts the Newton-CG solves and the host syncs they make while active."""
+
+    def __enter__(self):
+        from pecos_tpu_torch.xmc import solvers
+
+        self._solvers, self._core = solvers, solvers._newton_cg
+        self.solves, self._syncs0 = 0, solvers.all_converged.syncs
+
+        def counted(*args, **kwargs):
+            self.solves += 1
+            return self._core(*args, **kwargs)
+
+        solvers._newton_cg = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._solvers._newton_cg = self._core
+        self.syncs = self._solvers.all_converged.syncs - self._syncs0
+
+    def per_solve(self):
+        return self.syncs / max(self.solves, 1)
+
+
+def solver_cases(rng):
+    """(name, solver, args as numpy, kwargs) of phase 10a: small problems with
+    more rows than features or a cost that keeps them well conditioned."""
+    N, D, Lb = 2048, 257, 64
+    X = rng.standard_normal((N, D)).astype(np.float32)
+    X[:, -1] = 1.0
+    codes = rng.choice(np.array([0, 1, 2], np.uint8), size=(N, Lb), p=[0.2, 0.2, 0.6])
+    R = rng.uniform(0.5, 2.0, size=(N, Lb)).astype(np.float32)
+    Cb, P, xcap, F2, ns = 8, 128, 16, 256, 16
+    ids = np.argsort(rng.uniform(size=(Cb, P, F2)), axis=2)[:, :, :xcap].astype(np.int32)
+    vals = rng.standard_normal((Cb, P, xcap)).astype(np.float32)
+    y = np.where(rng.uniform(size=(Cb, P, ns)) < 0.3, 1.0, -1.0).astype(np.float32)
+    c = rng.uniform(0.5, 1.5, size=(Cb, P, ns)).astype(np.float32)
+    Pr, xr, Db = 1024, 32, 2000
+    r_ids = np.argsort(rng.uniform(size=(Pr, Db)), axis=1)[:, :xr].astype(np.int32)
+    r_ids[::3, -4:] = Db  # padded slots
+    r_vals = np.where(r_ids < Db, rng.standard_normal((Pr, xr)), 0.0).astype(np.float32)
+    r_y = np.where(rng.uniform(size=(Pr, ns)) < 0.3, 1.0, -1.0).astype(np.float32)
+    r_c = rng.uniform(0.5, 1.5, size=(Pr, ns)).astype(np.float32)
+    return [
+        ("solve_block_coded", "solve_block_coded", (X, codes, 1.0, 1.0, R), {}),
+        ("solve_cluster_bucket", "solve_cluster_bucket", (ids, vals, y, c), dict(F2=F2)),
+        ("solve_sparse_rows dense", "solve_sparse_rows", (r_ids, r_vals, r_y, r_c), dict(Db=Db)),
+        ("solve_sparse_rows chunked", "solve_sparse_rows", (r_ids, r_vals, r_y, r_c), dict(Db=Db)),
+    ]
+
+
+def check_solvers(device, smi):
+    """Phase 10a: each solver on the card against the port on the CPU, same
+    inputs, tight solve; W within atol SOLVER_ATOL.  Returns the max abs error."""
+    import torch
+
+    from pecos_tpu_torch.xmc import solvers
+
+    worst = 0.0
+    for name, fn, args, kw in solver_cases(np.random.default_rng(SEED + 10)):
+        out = []  # W on the CPU, then on the card
+        for dev in (torch.device("cpu"), device):
+            targs = [torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a for a in args]
+            budget = solvers._GLOBAL_DENSE_BUDGET
+            if name.endswith("chunked"):
+                solvers._GLOBAL_DENSE_BUDGET = 0
+            try:
+                with SolveCounter() as count:
+                    t0 = time.perf_counter()
+                    W = getattr(solvers, fn)(*targs, **kw, **TIGHT)
+                    out.append(W.cpu().numpy())
+                    secs = time.perf_counter() - t0
+            finally:
+                solvers._GLOBAL_DENSE_BUDGET = budget
+        want, got = out
+        err = float(np.abs(got - want).max())
+        print(f"train solvers {name} W {got.shape}: max_abs_err vs CPU {err!r} (|W| max "
+              f"{float(np.abs(want).max())!r}); on the card {secs!r} s, {count.syncs} host syncs in "
+              f"{count.solves} solve [{smi}]")
+        if not (err <= SOLVER_ATOL and np.isfinite(got).all()):
+            raise RuntimeError(f"train solvers {name}: W differs from the CPU's by {err!r} > {SOLVER_ATOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def run_golden(device, smi):
+    """Phase 10b: the golden fixture indexed and trained on the card; returns
+    K1 launches of the train and predict."""
+    from pecos_tpu_torch.ops.intersect import intersect_scores
+    from pecos_tpu_torch.utils import smat_util
+    from pecos_tpu_torch.xmc import Indexer, LabelEmbeddingFactory
+    from pecos_tpu_torch.xmc.xlinear import XLinearModel
+
+    data = os.path.join(HERE, "tests", "data")
+    X, Y, Xt, Yt = (smat_util.load_matrix(os.path.join(data, f)).tocsr() for f in ("X.trn.npz", "Y.trn.npz", "X.tst.npz", "Y.tst.npz"))
+    golden_prec = np.load(os.path.join(data, "golden_prec.npy"))
+    chain = Indexer.gen(LabelEmbeddingFactory.create(Y, X, method="pifa"), max_leaf_size=4, nr_splits=2, seed=11, device=device)
+    intersect_scores.launches = 0
+    model = XLinearModel.train(X, Y, C=chain, threshold=0.0, device=device)
+    prec = smat_util.Metrics.generate(Yt, model.predict(Xt, beam_size=8, only_topk=5), topk=5).prec
+    launches = intersect_scores.launches
+    print(f"train golden: chain {[C.shape for C in chain]}, P@1..5 {prec.tolist()} vs golden {golden_prec.tolist()}, "
+          f"K1 launches {launches} (every layer of this model is dense)")
+    if not np.allclose(prec, golden_prec, atol=GOLDEN_ATOL, rtol=0):
+        raise RuntimeError(f"train golden: precision {prec} not within {GOLDEN_ATOL} of the golden {golden_prec}")
+    precs = {}
+    for dev in (device, "cpu"):
+        m = XLinearModel.train(X, Y, C=chain, threshold=0.0, negative_sampling_scheme="tfn+man", device=dev)
+        precs[str(dev)] = smat_util.Metrics.generate(Yt, m.predict(Xt, beam_size=8, only_topk=5), topk=5).prec
+    p_card, p_cpu = precs[str(device)], precs["cpu"]
+    print(f"train golden tfn+man: P@1..5 on the card {p_card.tolist()}, on the CPU {p_cpu.tolist()}")
+    if not np.allclose(p_card, p_cpu, atol=GOLDEN_ATOL, rtol=0):
+        raise RuntimeError(f"train golden tfn+man: card {p_card} vs CPU {p_cpu} beyond {GOLDEN_ATOL}")
+    return launches
+
+
+def load_xmc_bench():
+    """scripts/xmc_bench.py as a module (its top level imports numpy and scipy only)."""
+    spec = importlib.util.spec_from_file_location("xmc_bench", os.path.join(HERE, "scripts", "xmc_bench.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_matched_recall(device, smi):
+    """Phase 10c: index, train twice, predict through K1; returns (K1
+    launches of the predict, numbers)."""
+    import torch
+
+    from pecos_tpu_torch.ops.intersect import intersect_scores
+    from pecos_tpu_torch.utils import smat_util
+    from pecos_tpu_torch.xmc import Indexer, LabelEmbeddingFactory
+    from pecos_tpu_torch.xmc.xlinear import XLinearModel
+
+    t0 = time.perf_counter()
+    X, Y, Xt, Yt = load_xmc_bench().make_data(**MR_DATA)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chain = Indexer.gen(LabelEmbeddingFactory.create(Y, X, method="pifa"), device=device, **MR_INDEX)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    train_s, peaks = [], []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with SolveCounter() as count:
+            t0 = time.perf_counter()
+            model = XLinearModel.train(X, Y, C=chain, shallow=True, device=device)
+            torch.cuda.synchronize()
+            train_s.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    layers = [(m.nr_labels, m.nr_codes, m.W.nnz) for m in model.model.model_chain]
+    kw = dict(beam_size=MR_BEAM, only_topk=MR_TOPK)
+    intersect_scores.launches = 0
+    P = model.predict(Xt, **kw)
+    launches = intersect_scores.launches
+    if P.shape != Yt.shape or not np.isfinite(P.data).all() or (np.diff(P.indptr) != MR_TOPK).any():
+        raise RuntimeError(f"train predict: {P.shape} with {P.nnz} entries, not {MR_TOPK} finite labels for each of {Yt.shape[0]}")
+    m = smat_util.Metrics.generate(Yt, P, topk=MR_TOPK)
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.predict(Xt, **kw)
+        best = min(best, time.perf_counter() - t0)
+    qps = Xt.shape[0] / best
+    kinds = [l.kind for l in model.model._get_compiled().layers]
+    print(f"train matched-recall: data {X.shape} x {Y.shape[1]} labels made in {data_s!r} s; index (PIFA + clustering "
+          f"on the card) {index_s!r} s, chain {[C.shape for C in chain]} [{smi}]")
+    print(f"train matched-recall [{smi}]: XLinearModel.train first {train_s[0]!r} s, second {train_s[1]!r} s; peak "
+          f"device memory above the start {peaks[0]} / {peaks[1]} bytes; {count.solves} solves, {count.syncs} host "
+          f"syncs ({count.per_solve()!r} per solve); layers (labels, codes, nnz W) {layers}")
+    print(f"train matched-recall predict [{smi}]: {Xt.shape[0]} queries, beam {MR_BEAM}, top {MR_TOPK}, layers {kinds}: "
+          f"P@1/3/5 {m.prec[0]!r} / {m.prec[2]!r} / {m.prec[4]!r}, recall@10 {m.recall[9]!r}; "
+          f"{qps!r} QPS (best of 3); K1 launches {launches}")
+    if launches <= 0:
+        raise RuntimeError("train predict: K1 was not launched")
+    if m.prec[0] < MR_MIN_P1:
+        raise RuntimeError(f"train predict: P@1 {m.prec[0]!r} < {MR_MIN_P1}")
+    return launches, {
+        "index_s": index_s, "train_s": train_s, "peak_bytes": peaks, "syncs_per_solve": count.per_solve(),
+        "prec": m.prec.tolist(), "recall10": float(m.recall[9]), "qps": qps,
+    }
+
+
 def main():
     import torch
 
@@ -446,6 +654,14 @@ def main():
 
     # 9. compiled folder, eager and lazy
     eager_launches, lazy_launches = run_compiled(compiled, X, P, n_plabel, smi, kw, device)
+    del xlm, compiled
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. training: solvers, the golden fixture, the matched-recall benchmark
+    check_solvers(device, smi)
+    golden_launches = run_golden(device, smi)
+    train_launches, _ = run_matched_recall(device, smi)
 
     print(f"gpu: {smi}")
     kernels = [{
@@ -455,6 +671,7 @@ def main():
         "launches_by_path": {
             "predict": launches, **{f"wire_{dt}": n for dt, n in wire_launches.items()},
             "realtime": realtime_launches, "compiled_eager": eager_launches, "compiled_lazy": lazy_launches,
+            "train_golden": golden_launches, "train_predict": train_launches,
         },
     }]
     print(json.dumps({"kernels": kernels}))

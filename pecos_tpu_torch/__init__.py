@@ -1,12 +1,13 @@
-"""PECOS on PyTorch + CUDA: the XR-Linear predict path for one NVIDIA GPU.
+"""PECOS on PyTorch + CUDA: XR-Linear training and prediction for one NVIDIA GPU.
 
 The port of ``pecos_tpu`` (JAX on TPU) to PyTorch, with every Pallas kernel
 replaced by a CUDA kernel written by hand for Hopper (``sm_90a``).  Module
 paths mirror ``pecos_tpu`` so each function's counterpart is found at the same
 place:
 
-- ``pecos_tpu_torch.xmc``   — XR-Linear models and the beam-search predict
-  engine (``xmc/inference.py``).
+- ``pecos_tpu_torch.xmc``   — XR-Linear models, their Newton-CG training
+  (``xmc/solvers.py``), balanced clustering (``xmc/clustering.py``) and the
+  beam-search predict engine (``xmc/inference.py``).
 - ``pecos_tpu_torch.ops``   — the hand-written kernels, their plain PyTorch
   versions and the build that compiles them at first use.
 - ``pecos_tpu_torch.utils`` — host helpers (sparse-matrix I/O, metrics, cluster
@@ -18,13 +19,15 @@ The port imports torch, numpy and scipy, never jax, and nothing of
 Config system: every model class derives from :class:`BaseClass` whose nested
 ``PredParams`` dataclasses derive from :class:`BaseParams`.  Params round-trip
 through JSON with an embedded ``__meta__.class_fullname``, in the same format
-``pecos_tpu`` writes, so model folders move between the two packages.
+``pecos_tpu`` writes, so model folders and params files move between the two
+packages.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses as dc
+import importlib
 import json
 from typing import Any, Dict, Optional, Type
 
@@ -44,10 +47,25 @@ class _ClassRegistry(type):
 
     @staticmethod
     def lookup(fullname: str) -> type:
-        if fullname not in _ClassRegistry._registry:
-            # import the defining module, which registers its classes
-            __import__(fullname.split("###", 1)[0])
-        return _ClassRegistry._registry[fullname]
+        """The class a ``__meta__.class_fullname`` names.  A name written by the
+        JAX package (``pecos_tpu.<module>###<qualname>``) resolves to the
+        port's class of the same qualname in ``pecos_tpu_torch.<module>``;
+        ``pecos_tpu`` itself is never imported.  Raises ValueError for a name
+        with no class behind it."""
+        module, sep, qualname = fullname.partition("###")
+        if module == "pecos_tpu" or module.startswith("pecos_tpu."):
+            module = "pecos_tpu_torch" + module[len("pecos_tpu"):]
+        name = f"{module}{sep}{qualname}"
+        if name not in _ClassRegistry._registry and module.split(".", 1)[0] == "pecos_tpu_torch":
+            try:  # import the defining module, which registers its classes
+                importlib.import_module(module)
+            except ModuleNotFoundError as e:
+                if not (e.name and module.startswith(e.name)):
+                    raise  # a module the port's module imports is missing
+                raise ValueError(f"params class {fullname!r}: no module {module!r} in the port") from e
+        if name not in _ClassRegistry._registry:
+            raise ValueError(f"params class {fullname!r} has no counterpart in pecos_tpu_torch")
+        return _ClassRegistry._registry[name]
 
 
 def class_fullname(cls: type) -> str:

@@ -1,8 +1,8 @@
 """Sparse-matrix I/O, top-k CSR helpers and ranking metrics (numpy/scipy).
 
-The subset of ``pecos_tpu/utils/smat_util.py`` that the predict path, its
-CLIs and model surgery use, with the same on-disk formats: ``.npz`` (scipy
-sparse) for sparse and ``.npy`` for dense matrices.
+The subset of ``pecos_tpu/utils/smat_util.py`` that the predict and train
+paths, their CLIs and model surgery use, with the same on-disk formats:
+``.npz`` (scipy sparse) for sparse and ``.npy`` for dense matrices.
 """
 
 from __future__ import annotations
@@ -87,6 +87,45 @@ def binarized(X: smat.spmatrix) -> smat.csr_matrix:
     X = X.tocsr(copy=True)
     X.data[:] = 1.0
     return X
+
+
+def csr_rowwise_mul(A: smat.spmatrix, v: np.ndarray) -> smat.csr_matrix:
+    """CSR copy of A with row i multiplied by v[i]."""
+    A = A.tocsr(copy=True)
+    A.data *= np.repeat(v, np.diff(A.indptr))
+    return A
+
+
+def normalize(X: Matrix, axis: int = 1, norm: str = "l2", copy: bool = True) -> Matrix:
+    """Rows (axis=1) or columns (axis=0) of a dense or sparse X scaled to unit
+    l1, l2 or max norm; all-zero rows stay zero."""
+    if axis == 0:
+        return normalize(X.T, axis=1, norm=norm, copy=copy).T
+    if norm not in ("l1", "l2", "max"):
+        raise ValueError(f"unknown norm {norm!r}: use l1, l2 or max")
+    if smat.issparse(X):
+        X = X.tocsr(copy=copy)
+        if norm == "l2":
+            nrm = np.sqrt(np.asarray(X.multiply(X).sum(axis=1)).ravel())
+        elif norm == "l1":
+            nrm = np.asarray(abs(X).sum(axis=1)).ravel()
+        else:
+            nrm = np.asarray(abs(X).max(axis=1).todense()).ravel()
+        nrm[nrm == 0] = 1.0
+        return csr_rowwise_mul(X, 1.0 / nrm)
+    X = np.array(X, copy=copy)
+    if norm == "l2":
+        nrm = np.linalg.norm(X, axis=1)
+    elif norm == "l1":
+        nrm = np.abs(X).sum(axis=1)
+    else:
+        nrm = np.abs(X).max(axis=1)
+    nrm[nrm == 0] = 1.0
+    return X / nrm[:, None]
+
+
+def hstack_csr(mats: Sequence[Matrix]) -> smat.csr_matrix:
+    return smat.hstack([m.tocsr() if smat.issparse(m) else smat.csr_matrix(m) for m in mats], format="csr")
 
 
 def hstack_csc(mats: Sequence[smat.spmatrix]) -> smat.csc_matrix:

@@ -1,4 +1,5 @@
-"""Extreme multi-label classification (XMC): XR-Linear predict in PyTorch."""
+"""Extreme multi-label classification (XMC): XR-Linear training and predict in PyTorch."""
 
 from .postprocessor import PostProcessor  # noqa: F401
-from .base import MLModel, HierarchicalMLModel, PredictOnlyHierModel  # noqa: F401
+from .clustering import HierarchicalKMeans, Indexer, LabelEmbeddingFactory  # noqa: F401
+from .base import MLProblem, MLModel, HierarchicalMLModel, PredictOnlyHierModel  # noqa: F401

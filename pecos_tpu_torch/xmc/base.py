@@ -1,10 +1,15 @@
-"""XMC model classes for predict: MLModel (one layer), PredictOnlyHierModel
-and HierarchicalMLModel.
+"""XMC model classes: MLProblem, MLModel (one layer), PredictOnlyHierModel
+and HierarchicalMLModel, trained and predicted on a torch device.
 
-The predict side of ``pecos_tpu/xmc/base.py``.  Model folders have the same
-layout as the JAX package writes: ``param.json`` + ``W.npz``/``C.npz`` per
-layer, ``{d}.model`` subfolders for the chain, so a model saved by either
-package loads in the other.  Training is not ported yet (ROADMAP.md).
+The port of ``pecos_tpu/xmc/base.py``.  Training solves every layer's
+per-label problems with the batched Newton-CG of ``xmc/solvers.py``: one
+masked dense solve per label block when the layer is dense-ish, otherwise
+one solve per bucket of same-shape clusters, each cluster gathered to its
+active rows and feature union.  The host keeps the bookkeeping (numpy/scipy);
+the device holds X and runs the solves.  Model folders have the layout the
+JAX package writes: ``param.json`` + ``W.npz``/``C.npz`` per layer,
+``{d}.model`` subfolders for the chain, so a model saved by either package
+loads in the other.
 """
 
 from __future__ import annotations
@@ -12,23 +17,129 @@ from __future__ import annotations
 import copy
 import dataclasses as dc
 import json
+import logging
 import os
-from typing import Any, List, Optional
+from collections import deque
+from typing import Any, List, Optional, Sequence, Union
 
 import numpy as np
 import scipy.sparse as smat
+import torch
 
 import pecos_tpu_torch
 from pecos_tpu_torch.utils import smat_util
+from pecos_tpu_torch.utils.cluster_util import ClusterChain
 from pecos_tpu_torch.utils.torch_util import DeviceLike, resolve_device
+from . import solvers
 from .inference import (
     CompiledHierModel,
     DeviceLayer,
+    _upload,
     build_device_layer,
+    prepare_queries_padded,
+    scatter_queries,
     score_selected_labels,
     single_layer_predict,
 )
 from .postprocessor import PostProcessor
+
+LOGGER = logging.getLogger(__name__)
+
+# cap on elements per (N x Lb) solver block intermediate
+_SOLVER_BLOCK_BUDGET = 1 << 26
+# padded P*F elements above which a cluster leaves the local-dense bucket
+# solver for the global sparse-rows solver (tests shrink it to reach that
+# path on toy data)
+_LOCAL_DENSE_BUDGET = 1 << 27
+# elements of one bucket chunk's local dense X (Cb * P2 * F2)
+_BUCKET_CHUNK_ELEMENTS = 1 << 24
+
+
+def _pow2(v, lo: int = 8):
+    """The next power of two >= v, at least ``lo`` (elementwise for arrays)."""
+    if np.ndim(v):
+        return np.maximum(lo, 2 ** np.ceil(np.log2(np.maximum(v, 1))).astype(np.int64))
+    return max(lo, 1 << max(int(v) - 1, 0).bit_length())
+
+
+def _scatter_dense(ids: torch.Tensor, vals: torch.Tensor, D: int, bias: float) -> torch.Tensor:
+    """Padded sparse rows (N, cap), pad id D+1, as a contiguous dense (N, Db)
+    float32 on their device: [X | bias] with bias > 0, X alone otherwise."""
+    X = scatter_queries(ids, vals, D, bias)
+    return (X if bias > 0 else X[:, :D]).contiguous()
+
+
+def _dense_X_device(X, bias: float, device: torch.device) -> torch.Tensor:
+    """Dense [X | bias] (N, Db) on ``device``, built from one nnz-sized padded
+    upload and a scatter on the device, and cached on the matrix object.  The
+    cache is keyed by bias, device and the identity of the CSR buffers, so
+    replacing them invalidates it (writing into X.data in place does not)."""
+    if not smat.issparse(X):
+        Xd = np.asarray(X, np.float32)
+        if bias > 0:
+            Xd = np.hstack([Xd, np.full((Xd.shape[0], 1), bias, np.float32)])
+        return _upload(np.ascontiguousarray(Xd), device)
+    A = X.tocsr()
+    key = (float(bias), device)
+    cached = getattr(A, "_ptpu_xdev", None)
+    if cached is not None and cached[0] == key and all(a is b for a, b in zip(cached[1:4], (A.indptr, A.indices, A.data))):
+        return cached[4]
+    ids, vals = prepare_queries_padded(A)
+    X_dev = _scatter_dense(_upload(ids, device), _upload(vals, device), A.shape[1], float(bias))
+    A._ptpu_xdev = (key, A.indptr, A.indices, A.data, X_dev)
+    return X_dev
+
+
+def _ranges(starts: np.ndarray, ends: np.ndarray):
+    """The index ranges [starts_i, ends_i) concatenated: (which range, index)
+    per element, so many clusters' slices are gathered with one fancy index."""
+    lens = (ends - starts).astype(np.int64)
+    rep = np.repeat(np.arange(len(starts), dtype=np.int64), lens)
+    within = np.arange(int(lens.sum()), dtype=np.int64) - np.repeat(np.cumsum(lens) - lens, lens)
+    return rep, starts[rep] + within
+
+
+class MLProblem(object):
+    """X, Y, C, M, R of one training layer.
+
+    M (instances x clusters) marks each instance's active clusters, whose
+    labels it trains as negatives; it defaults to the teacher-forced Y @ C
+    when C has more than one cluster.  R, the positives' relevance, must share
+    Y's nonzero pattern and be non-negative.
+    """
+
+    def __init__(self, X, Y, C=None, M=None, R=None):
+        f32 = np.float32
+        self.X = X.tocsr().astype(f32) if smat.issparse(X) else np.asarray(X, dtype=f32)
+        self.Y = Y.tocsc().astype(f32) if smat.issparse(Y) else smat.csc_matrix(Y, dtype=f32)
+        self.Y.sort_indices()
+        self.C = smat.csc_matrix(np.ones((self.Y.shape[1], 1), dtype=f32)) if C is None else C.tocsc().astype(f32)
+        if R is not None:
+            R = R.tocsc().astype(f32)
+            R.sort_indices()
+            if not (np.array_equal(self.Y.indptr, R.indptr) and np.array_equal(self.Y.indices, R.indices)):
+                raise ValueError("Invalid relevance matrix: nonzero pattern differs from Y")
+            if (R.data < 0).any():
+                raise ValueError("Invalid relevance matrix: got value < 0")
+        self.R = R
+        if M is None:
+            if self.C.shape[1] > 1:
+                M = (self.Y @ self.C).tocsc()
+            else:
+                M = smat.csc_matrix(np.ones((self.Y.shape[0], 1), dtype=f32))
+        elif M.shape != (self.Y.shape[0], self.C.shape[1]):
+            raise ValueError("M shape mismatch")
+        else:
+            M = M.tocsc().astype(f32)
+        self.M = M
+
+    @property
+    def nr_labels(self):
+        return self.Y.shape[1]
+
+    @property
+    def nr_features(self):
+        return self.X.shape[1]
 
 
 def _quartiles(v: np.ndarray) -> dict:
@@ -40,7 +151,24 @@ def _quartiles(v: np.ndarray) -> dict:
 
 class MLModel(pecos_tpu_torch.BaseClass):
     """One tree layer: weight matrix W (D+bias, L) CSC + cluster matrix C (L, K),
-    predicted on ``device``."""
+    trained and predicted on ``device``."""
+
+    @dc.dataclass
+    class TrainParams(pecos_tpu_torch.BaseParams):
+        threshold: float = 0.1
+        max_nonzeros_per_label: Optional[int] = None
+        solver_type: str = "L2R_L2LOSS_SVC_DUAL"
+        Cp: float = 1.0
+        Cn: float = 1.0
+        max_iter: int = 100  # the reference's dual-solver settings, kept so params files load
+        eps: float = 0.1
+        bias: float = 1.0
+        threads: int = -1  # the reference's OpenMP threads, kept likewise
+        verbose: int = 0
+        newton_eps: float = 0.01
+        max_newton_iter: int = 20
+        cg_max_iter: int = 10
+        solver_mode: str = "auto"  # auto | dense | bucketed
 
     @dc.dataclass
     class PredParams(pecos_tpu_torch.BaseParams):
@@ -117,6 +245,290 @@ class MLModel(pecos_tpu_torch.BaseClass):
             bias=param.get("bias", -1.0),
             pred_params=pred_params,
             device=device,
+        )
+
+    @classmethod
+    def train(
+        cls,
+        prob: MLProblem,
+        train_params: Optional["MLModel.TrainParams"] = None,
+        pred_params: Optional["MLModel.PredParams"] = None,
+        device: DeviceLike = "cuda",
+        **kwargs,
+    ) -> "MLModel":
+        """Train one layer on ``device``; kwargs override train_params fields.
+
+        Each label's active rows: the rows of M's column for the label's
+        cluster are negatives, the rows of Y's column positives; a positive
+        costs Cp (times its relevance), a negative Cn.  ``solver_mode`` auto
+        solves masked dense label blocks when they fit and the layer is
+        dense-ish (one cluster, or active pairs above a quarter of N x K),
+        and gathers each cluster otherwise.
+        """
+        device = resolve_device(device)
+        train_params = cls.TrainParams.from_dict(train_params)
+        train_params.override_with_kwargs(kwargs)
+        pred_params = cls.PredParams.from_dict(pred_params)
+        loss = solvers.loss_name(train_params.solver_type)
+        X, Y, C, M = prob.X, prob.Y, prob.C, prob.M
+        (N, D), L, K = X.shape, Y.shape[1], C.shape[1]
+        mode = train_params.solver_mode
+        if mode == "auto":
+            dense_fits = N * L <= (1 << 28) and N * (D + 1) <= (1 << 28)
+            dense_ish = K <= 1 or (M.nnz + Y.nnz) / max(1, N * K) > 0.25
+            mode = "dense" if dense_fits and dense_ish else "bucketed"
+        if mode not in ("dense", "bucketed"):
+            raise ValueError(f"solver_mode must be auto, dense or bucketed, got {train_params.solver_mode!r}")
+        solve_kw = dict(
+            loss=loss, eps=train_params.newton_eps, max_newton=train_params.max_newton_iter,
+            cg_max=train_params.cg_max_iter,
+        )
+        train = cls._train_dense if mode == "dense" else cls._train_bucketed
+        W = train(prob, train_params, solve_kw, device)
+        return cls(W=W, C=C, bias=train_params.bias, pred_params=pred_params, device=device)
+
+    @staticmethod
+    def _train_dense(prob: MLProblem, tp: "MLModel.TrainParams", solve_kw: dict, device) -> smat.csc_matrix:
+        """Masked dense solves over blocks of labels: X (N, Db) stays on the
+        device, each block's y/c travel as one uint8 code per (row, label)
+        (0 inactive, 1 positive, 2 negative).  The block is sized to the
+        layer (a power of two, at most 2048 and ``_SOLVER_BLOCK_BUDGET / N``),
+        pad columns stay code 0 and solve to w = 0."""
+        X_dev = _dense_X_device(prob.X, tp.bias, device)
+        N, Db = X_dev.shape
+        L = prob.Y.shape[1]
+        parents = prob.C.tocsr().indices.astype(np.int64)  # one cluster per label
+        M_csc, Y_csc = prob.M.tocsc(), prob.Y.tocsc()
+        R_csc = None if prob.R is None else prob.R.tocsc()
+        block = max(8, min(2048, _SOLVER_BLOCK_BUDGET // max(N, 1), _pow2(L)))
+        max_nnz = min(tp.max_nonzeros_per_label or Db, Db)
+        thr = float(tp.threshold)
+        W_cols: List[smat.csc_matrix] = []
+        pending: deque = deque()  # (W block on the device, its real width), in block order
+
+        def retire(limit: int) -> None:
+            # prune on the device (threshold, then the max_nnz largest |w| per
+            # label) and fetch the sparse (idx, val) pairs, not the dense block
+            while len(pending) > limit:
+                Wb, Lb = pending.popleft()
+                K = min(max_nnz, int(solvers.count_above_threshold(Wb, thr))) if thr > 0 else max_nnz
+                if K < Db // 2:
+                    # a power-of-two K keeps few shapes; the top-K is sorted by
+                    # magnitude, so cutting it to K keeps max_nnz exact
+                    idx, vals = solvers.prune_topk_device(Wb, thr, min(_pow2(K), Db))
+                    idx, vals = idx.cpu().numpy()[:Lb, :K], vals.cpu().numpy()[:Lb, :K]
+                    nz = vals.ravel() != 0
+                    cols = np.repeat(np.arange(Lb), idx.shape[1])[nz]
+                    W_cols.append(smat.csc_matrix((vals.ravel()[nz], (idx.ravel()[nz], cols)), shape=(Db, Lb)))
+                else:
+                    Wh = Wb[:, :Lb].cpu().numpy()
+                    W_cols.append(smat.csc_matrix(np.where(np.abs(Wh) < thr, 0.0, Wh)))
+
+        for s in range(0, L, block):
+            e = min(s + block, L)
+            codes = np.zeros((N, block), np.uint8)
+            codes[:, : e - s][M_csc[:, parents[s:e]].toarray() != 0] = 2
+            codes[:, : e - s][Y_csc[:, s:e].toarray() > 0] = 1
+            R_dev = None
+            if R_csc is not None:
+                Rb = np.zeros((N, block), np.float32)
+                Rb[:, : e - s] = R_csc[:, s:e].toarray()
+                R_dev = _upload(Rb, device)
+            Wb = solvers.solve_block_coded(X_dev, _upload(codes, device), tp.Cp, tp.Cn, R_dev, **solve_kw)
+            pending.append((Wb, e - s))
+            retire(2)  # the next block's host work overlaps this solve
+        retire(0)
+        return smat_util.hstack_csc(W_cols) if W_cols else smat.csc_matrix((Db, 0), dtype=np.float32)
+
+    @staticmethod
+    def _train_bucketed(prob: MLProblem, tp: "MLModel.TrainParams", solve_kw: dict, device) -> smat.csc_matrix:
+        """Per-cluster training: each cluster's active rows and the features
+        they touch are gathered, and clusters of one padded shape (P2 rows,
+        F2 features, xc2 nonzeros a row, powers of two) are solved together
+        by :func:`solvers.solve_cluster_bucket`.  Clusters whose padded P x F
+        exceeds ``_LOCAL_DENSE_BUDGET`` go to :func:`solvers.solve_sparse_rows`
+        in the global feature space.  All bookkeeping is vectorised over the
+        whole layer (one SpMM for the active sets, one sort for the feature
+        unions), not a Python loop per cluster or label."""
+        X = prob.X.tocsr() if smat.issparse(prob.X) else smat.csr_matrix(prob.X)
+        Y_csc, C, M_csc = prob.Y.tocsc(), prob.C.tocsc(), prob.M.tocsc()
+        N, D = X.shape
+        L, K = Y_csc.shape[1], C.shape[1]
+        bias = tp.bias
+        nb = 1 if bias > 0 else 0
+        Db = D + nb
+        max_nnz = tp.max_nonzeros_per_label or Db
+        Cp, Cn = np.float32(tp.Cp), np.float32(tp.Cn)
+
+        # the tree: cluster k's labels are C's column k; a label's sibling rank is its place there
+        c_indptr = C.indptr
+        nk_all = np.diff(c_indptr)
+        parents = np.zeros(L, np.int64)
+        parents[C.indices] = np.repeat(np.arange(K), nk_all)
+        j_local = np.empty(L, np.int64)
+        j_local[C.indices] = np.arange(len(C.indices)) - np.repeat(c_indptr[:-1], nk_all)
+        ns_max = max(int(nk_all.max()) if K else 1, 1)
+
+        # active rows of every cluster: the pattern of Y @ C + M, CSC by cluster
+        Act = (smat_util.binarized(Y_csc) @ smat_util.binarized(C) + smat_util.binarized(M_csc)).tocsc()
+        Act.sum_duplicates()
+        Act.sort_indices()
+        act_indptr, act_rows = Act.indptr, Act.indices
+        P_arr = np.diff(act_indptr)
+        act_cluster = np.repeat(np.arange(K, dtype=np.int64), P_arr)
+        act_keys = act_cluster * N + act_rows  # sorted: by cluster, then row
+        in_M = np.zeros(len(act_rows), bool)
+        m_cluster = np.repeat(np.arange(K, dtype=np.int64), np.diff(M_csc.indptr))
+        in_M[np.searchsorted(act_keys, m_cluster * N + M_csc.indices)] = True
+
+        # positives: (local row, sibling rank, cost) per Y entry, grouped by cluster
+        y_lab = np.repeat(np.arange(L, dtype=np.int64), np.diff(Y_csc.indptr))
+        y_par = parents[y_lab]
+        y_cost = Cp * prob.R.tocsc().data.astype(np.float32) if prob.R is not None else np.full(len(y_lab), Cp, np.float32)
+        ordY = np.argsort(y_par, kind="stable")
+        y_row = (np.searchsorted(act_keys, y_par * N + Y_csc.indices) - act_indptr[y_par])[ordY]
+        y_j, y_cost = j_local[y_lab][ordY], y_cost[ordY]
+        y_bounds = np.searchsorted(y_par[ordY], np.arange(K + 1))
+
+        # one global gather of the active rows of X, one entry list per cluster
+        XA = X[act_rows]
+        row_nnz = np.diff(XA.indptr)
+        e_cluster = np.repeat(act_cluster, row_nnz)
+        e_row = np.repeat(np.arange(len(act_rows)) - act_indptr[act_cluster], row_nnz)  # local row
+        e_off = np.arange(XA.nnz) - np.repeat(XA.indptr[:-1], row_nnz)  # slot within its row
+        xent_bounds = np.searchsorted(e_cluster, np.arange(K + 1))
+        seg_nnz = np.bincount(e_cluster, minlength=K)
+        xcap_arr = np.zeros(K, np.int64)
+        np.maximum.at(xcap_arr, act_cluster, row_nnz)
+        xcap_arr += nb
+
+        pw2_P = _pow2(P_arr)
+        is_big = (pw2_P * _pow2(np.minimum(seg_nnz + 1, Db), lo=128) > _LOCAL_DENSE_BUDGET) & (P_arr > 0)
+        nonempty = (P_arr > 0) & (nk_all > 0)
+        small = nonempty & ~is_big
+
+        # feature unions of the small clusters: one sort of (cluster, feature)
+        # keys; the bias feature D is every union's largest key, so its last slot
+        stride = np.int64(D + 1)
+        e_small = small[e_cluster]
+        fkeys = e_cluster[e_small] * stride + XA.indices[e_small]
+        small_ids = np.nonzero(small)[0].astype(np.int64)
+        uniq = np.unique(np.concatenate([fkeys, small_ids * stride + D]) if nb else fkeys)
+        F_bounds = np.searchsorted(uniq, np.arange(K + 1, dtype=np.int64) * stride)
+        F_len = np.diff(F_bounds)
+        F_feat = uniq % stride
+        f_local = np.zeros(XA.nnz, np.int32)
+        f_local[e_small] = np.searchsorted(uniq, fkeys) - F_bounds[e_cluster[e_small]]
+
+        def prune(Wb: np.ndarray) -> np.ndarray:
+            """Threshold, then keep the max_nnz largest |w| of each label
+            (axis -2 is the feature axis)."""
+            Wb = np.where(np.abs(Wb) < tp.threshold, 0.0, Wb)
+            if max_nnz < Wb.shape[-2]:
+                top = np.take(np.argpartition(-np.abs(Wb), max_nnz - 1, axis=-2), np.arange(max_nnz), axis=-2)
+                keep = np.zeros(Wb.shape, bool)
+                np.put_along_axis(keep, top, True, axis=-2)
+                Wb = np.where(keep, Wb, 0.0)
+            return Wb
+
+        W_rows: List[np.ndarray] = []
+        W_cols: List[np.ndarray] = []
+        W_vals: List[np.ndarray] = []
+        # solves in flight: each finishes (fetch, prune, scatter into W) in
+        # order once the window is full, so host padding of the next chunk
+        # overlaps the device's work on this one
+        pending: deque = deque()
+
+        def retire(limit: int) -> None:
+            while len(pending) > limit:
+                finish, dev = pending.popleft()
+                finish(dev.cpu().numpy())
+
+        # small clusters, bucketed by padded shape and chunked to bound device memory
+        F2_arr, xc2_arr = _pow2(F_len, lo=128), _pow2(xcap_arr)
+        small_ids = small_ids[np.lexsort((xc2_arr[small_ids], F2_arr[small_ids], pw2_P[small_ids]))]
+        shape_key = np.stack([pw2_P[small_ids], F2_arr[small_ids], xc2_arr[small_ids]], axis=1)
+        new_shape = np.ones(len(small_ids), bool)
+        new_shape[1:] = np.any(shape_key[1:] != shape_key[:-1], axis=1)
+        starts = np.flatnonzero(new_shape)
+        for b0, b1 in zip(starts, np.r_[starts[1:], len(small_ids)]):
+            P2, F2, xc2 = (int(v) for v in shape_key[b0])
+            cb = max(1, _BUCKET_CHUNK_ELEMENTS // (P2 * F2))
+            for s in range(b0, b1, cb):
+                ks = small_ids[s : min(s + cb, b1)]
+                Cb = len(ks)
+                ids = np.full((Cb, P2, xc2), F2, np.int32)
+                vals = np.zeros((Cb, P2, xc2), np.float32)
+                rep, ei = _ranges(xent_bounds[ks], xent_bounds[ks + 1])
+                ids[rep, e_row[ei], e_off[ei]] = f_local[ei]
+                vals[rep, e_row[ei], e_off[ei]] = XA.data[ei]
+                rep, ai = _ranges(act_indptr[ks], act_indptr[ks + 1])
+                p_local = ai - act_indptr[ks][rep]
+                if nb:
+                    ids[rep, p_local, row_nnz[ai]] = (F_len[ks] - 1)[rep]
+                    vals[rep, p_local, row_nnz[ai]] = bias
+                active = np.zeros((Cb, P2), bool)
+                active[rep, p_local] = True
+                negative = np.zeros((Cb, P2), bool)
+                negative[rep, p_local] = in_M[ai]
+                nk = nk_all[ks]
+                # pad rows are positives at cost 0; real rows negatives at Cn where M marks them
+                yb = np.repeat(np.where(active, np.float32(-1.0), np.float32(1.0))[:, :, None], ns_max, axis=2)
+                col_ok = np.arange(ns_max)[None, None, :] < nk[:, None, None]
+                cb_ = np.where(col_ok & negative[:, :, None], Cn, np.float32(0.0))
+                rep, yi = _ranges(y_bounds[ks], y_bounds[ks + 1])
+                yb[rep, y_row[yi], y_j[yi]] = 1.0
+                cb_[rep, y_row[yi], y_j[yi]] = y_cost[yi]
+                Wl = solvers.solve_cluster_bucket(
+                    *(_upload(a, device) for a in (ids, vals, yb, cb_)), F2=F2, **solve_kw
+                )
+
+                def finish_bucket(Wl, ks=ks, nk=nk):
+                    ci, fi, ji = np.nonzero(prune(Wl))  # (Cb, F2, ns_max)
+                    keep = (fi < F_len[ks][ci]) & (ji < nk[ci])
+                    ci, fi, ji = ci[keep], fi[keep], ji[keep]
+                    W_rows.append(F_feat[F_bounds[ks[ci]] + fi])
+                    W_cols.append(C.indices[c_indptr[ks[ci]] + ji].astype(np.int64))
+                    W_vals.append(Wl[ci, fi, ji])
+
+                pending.append((finish_bucket, Wl))
+                retire(6)
+
+        # big clusters: the global sparse-rows solver, one cluster at a time
+        for k in np.flatnonzero(nonempty & is_big):
+            P, xcap = int(P_arr[k]), max(int(xcap_arr[k]), 1)
+            P2, xc2, nk = _pow2(P), _pow2(xcap), int(nk_all[k])
+            ids = np.full((P2, xc2), Db, np.int32)
+            vals = np.zeros((P2, xc2), np.float32)
+            ei = np.arange(xent_bounds[k], xent_bounds[k + 1])
+            ids[e_row[ei], e_off[ei]] = XA.indices[ei]
+            vals[e_row[ei], e_off[ei]] = XA.data[ei]
+            if nb:
+                seg = row_nnz[act_indptr[k] : act_indptr[k + 1]]
+                ids[np.arange(P), seg] = D
+                vals[np.arange(P), seg] = bias
+            yb = np.ones((P2, nk), np.float32)
+            cb_ = np.zeros((P2, nk), np.float32)
+            yb[:P] = -1.0
+            cb_[:P] = np.where(in_M[act_indptr[k] : act_indptr[k + 1]], Cn, np.float32(0.0))[:, None]
+            yi = np.arange(y_bounds[k], y_bounds[k + 1])
+            yb[y_row[yi], y_j[yi]] = 1.0
+            cb_[y_row[yi], y_j[yi]] = y_cost[yi]
+            Wg = solvers.solve_sparse_rows(*(_upload(a, device) for a in (ids, vals, yb, cb_)), Db=Db, **solve_kw)
+
+            def finish_big(Wg, k=k):
+                fi, ji = np.nonzero(prune(Wg))  # (Db, nk)
+                W_rows.append(fi.astype(np.int64))
+                W_cols.append(C.indices[c_indptr[k] + ji].astype(np.int64))
+                W_vals.append(Wg[fi, ji])
+
+            pending.append((finish_big, Wg))
+            retire(2)
+        retire(0)
+
+        cat = lambda parts, dtype: np.concatenate(parts) if parts else np.zeros(0, dtype)
+        return smat.csc_matrix(
+            (cat(W_vals, np.float32), (cat(W_rows, np.int64), cat(W_cols, np.int64))), shape=(Db, L)
         )
 
     def _resolve_pred_params(self, pred_params, kwargs) -> "MLModel.PredParams":
@@ -291,8 +703,13 @@ class PredictOnlyHierModel(pecos_tpu_torch.BaseClass):
 
 
 class HierarchicalMLModel(pecos_tpu_torch.BaseClass):
-    """Chain of MLModels forming the hierarchical linear model; predicts on
-    the device its layers share."""
+    """Chain of MLModels forming the hierarchical linear model; trains and
+    predicts on the device its layers share."""
+
+    @dc.dataclass
+    class TrainParams(pecos_tpu_torch.BaseParams):
+        neg_mining_chain: Union[str, Sequence[str]] = "tfn"
+        model_chain: Any = None  # MLModel.TrainParams, or a tuple of them, one per layer
 
     @dc.dataclass
     class PredParams(pecos_tpu_torch.BaseParams):
@@ -388,6 +805,89 @@ class HierarchicalMLModel(pecos_tpu_torch.BaseClass):
             MLModel.load(os.path.join(folder, f"{d}.model"), device=device) for d in range(param["depth"])
         ]
         return cls(chain, is_predict_only=is_predict_only)
+
+    @staticmethod
+    def _broadcast_chain_params(params, param_cls, depth: int):
+        """``params`` (None, a dict or a ``param_cls``) with ``model_chain``
+        expanded to a tuple of ``depth`` leaf params: None gives defaults, one
+        leaf (alone or in a sequence of one) is copied to every layer."""
+        leaf_cls = MLModel.TrainParams if param_cls is HierarchicalMLModel.TrainParams else MLModel.PredParams
+        params = param_cls.from_dict(params)
+        mc = params.model_chain
+        if mc is None:
+            mc = [leaf_cls()]
+        elif isinstance(mc, (leaf_cls, dict)):
+            mc = [mc]
+        mc = tuple(leaf_cls.from_dict(p) for p in mc)
+        if len(mc) == 1:
+            mc = tuple(copy.deepcopy(mc[0]) for _ in range(depth))
+        if len(mc) != depth:
+            raise ValueError(f"model_chain length {len(mc)} != depth {depth}")
+        params.model_chain = mc
+        return params
+
+    @classmethod
+    def train(
+        cls,
+        prob: MLProblem,
+        clustering: Optional[ClusterChain] = None,
+        train_params: Optional["HierarchicalMLModel.TrainParams"] = None,
+        pred_params: Optional["HierarchicalMLModel.PredParams"] = None,
+        matching_chain=None,
+        relevance_chain=None,
+        device: DeviceLike = "cuda",
+        **kwargs,
+    ) -> "HierarchicalMLModel":
+        """Layer-by-layer training on ``device``.  Y is rolled up the chain;
+        layer t trains its labels against the negatives its scheme mines:
+        ``tfn`` the clusters of the instance's own labels (teacher-forced),
+        ``man`` the clusters the layer above predicts for it (matcher-aware),
+        ``usn`` ``matching_chain[t]`` (user-supplied).  kwargs: ``pred_kwargs``
+        overrides every layer's pred params."""
+        device = resolve_device(device)
+        if clustering is None:
+            clustering = ClusterChain([prob.C])
+        elif not isinstance(clustering, ClusterChain):
+            clustering = ClusterChain(clustering)
+        depth = len(clustering)
+        train_params = cls._broadcast_chain_params(train_params, cls.TrainParams, depth)
+        schemes = train_params.neg_mining_chain or "tfn"
+        schemes = [schemes] * depth if isinstance(schemes, str) else list(schemes)
+        train_params.neg_mining_chain = schemes = [s.lower() for s in schemes]
+        if len(schemes) != depth:
+            raise ValueError("neg_mining_chain length mismatch")
+        pred_params = cls._broadcast_chain_params(pred_params, cls.PredParams, depth)
+        pred_params.override_with_kwargs(kwargs.get("pred_kwargs"))
+
+        Y_chain = [prob.Y.tocsc()]  # Y_t = Y_{t+1} @ C_{t+1}
+        for C in clustering[:0:-1]:
+            Y_chain.insert(0, (Y_chain[0] @ C).tocsc())
+        matching_chain = [None] * depth if matching_chain is None else list(matching_chain)
+        relevance_chain = [None] * depth if relevance_chain is None else list(relevance_chain)
+
+        model_chain: List[MLModel] = []
+        M_pred = None  # the layer above's predictions, for man
+        for t, (Y, C, scheme) in enumerate(zip(Y_chain, clustering, schemes)):
+            LOGGER.info(f"training layer {t + 1}/{depth} (labels={Y.shape[1]}, neg_mining={scheme})")
+            M = None  # the top layer of one cluster trains every row against every label
+            if t > 0 or C.shape[1] > 1:
+                M = smat.csc_matrix((Y.shape[0], C.shape[1]), dtype=np.float32)
+                if "usn" in scheme and matching_chain[t] is not None:
+                    M = M + smat_util.binarized(matching_chain[t])
+                if "tfn" in scheme:
+                    M = M + smat_util.binarized(Y_chain[t - 1] if t > 0 else Y @ C)
+                if t > 0 and any("man" in s for s in schemes[t:]):
+                    M_pred = model_chain[-1].predict(prob.X, csr_codes=M_pred)
+                if t > 0 and "man" in scheme:
+                    M = M + smat_util.binarized(M_pred)
+            layer_prob = MLProblem(prob.X, Y, C=C, M=M, R=relevance_chain[t])
+            model_chain.append(
+                MLModel.train(
+                    layer_prob, train_params=train_params.model_chain[t],
+                    pred_params=pred_params.model_chain[t], device=device,
+                )
+            )
+        return cls(model_chain, pred_params=pred_params)
 
     def _get_compiled(self) -> CompiledHierModel:
         if self._compiled is None:

@@ -1,6 +1,7 @@
 """The port stands without JAX: every module of pecos_tpu_torch, and
-chip_smoke.py, import with jax blocked; nothing runs on a CUDA path without a
-GPU or without nvcc."""
+chip_smoke.py, import with jax blocked; params files the JAX package writes
+load without importing it (ROADMAP F6); nothing runs on a CUDA path without
+a GPU or without nvcc."""
 
 import os
 import shutil
@@ -30,6 +31,37 @@ print(len(names))
 """
 
 
+_TRAIN_MODULES = """
+import sys
+sys.modules["jax"] = None
+import pecos_tpu_torch.xmc.solvers, pecos_tpu_torch.xmc.clustering, pecos_tpu_torch.xmc.xlinear.train
+import pecos_tpu_torch.utils.cluster_util
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (m in ("jax", "pecos_tpu") or m.startswith(("jax.", "pecos_tpu."))))
+assert not leaked, leaked
+"""
+
+# params written by the JAX package's train CLI load into the port's classes
+# without importing the JAX package or jax (ROADMAP F6)
+_LOAD_JAX_PARAMS = """
+import json, sys
+params = json.load(open(sys.argv[1]))
+assert "pecos_tpu.xmc.xlinear.model###XLinearModel.TrainParams" in json.dumps(params)
+from pecos_tpu_torch.xmc import HierarchicalMLModel, MLModel
+from pecos_tpu_torch.xmc.clustering import HierarchicalKMeans
+from pecos_tpu_torch.xmc.xlinear import XLinearModel
+tp = XLinearModel.TrainParams.from_dict(params["train_params"])
+pp = XLinearModel.PredParams.from_dict(params["pred_params"])
+ip = HierarchicalKMeans.TrainParams.from_dict(params["indexer_params"])
+assert isinstance(tp.hlm_args, HierarchicalMLModel.TrainParams) and isinstance(pp.hlm_args, HierarchicalMLModel.PredParams)
+mc = HierarchicalMLModel._broadcast_chain_params(tp.hlm_args, HierarchicalMLModel.TrainParams, 2).model_chain
+assert [type(p) for p in mc] == [MLModel.TrainParams] * 2, mc
+assert ip.nr_splits == 16
+leaked = sorted(m for m in sys.modules if m in ("jax", "pecos_tpu") or m.startswith(("jax.", "pecos_tpu.")))
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(args, cwd):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True, timeout=120)
@@ -38,7 +70,27 @@ def _run(args, cwd):
 def test_port_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 14  # every module of the package was walked
+    assert int(proc.stdout.strip()) >= 18  # every module of the package was walked
+
+
+def test_train_modules_import_without_jax():
+    proc = _run(["-c", _TRAIN_MODULES], cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_jax_params_skeleton_loads_without_jax(tmp_path):
+    """F6: a skeleton written by ``python -m pecos_tpu.xmc.xlinear.train
+    --generate-params-skeleton`` loads in a process that never imports jax."""
+    skeleton = tmp_path / "params.json"
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    proc = subprocess.run(
+        [sys.executable, "-m", "pecos_tpu.xmc.xlinear.train", "--generate-params-skeleton"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    skeleton.write_text(proc.stdout)
+    proc = _run(["-c", _LOAD_JAX_PARAMS, str(skeleton)], cwd=REPO)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
