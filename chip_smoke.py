@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch + CUDA port (pecos_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # phases 1-11, the result lines last
+    python3 chip_smoke.py --profile-ann    # phases 1-2, then torch.profiler over phase 11's dense build and sparse predict
 
 Phases, each printing a line; any failed check raises and the run exits
 non-zero:
@@ -8,9 +9,11 @@ non-zero:
 1. device  — needs torch.cuda; prints the card's name and power limit.
 2. build   — compiles the CUDA kernels from pecos_tpu_torch/ops/csrc.
 3. K1      — the intersection kernel against its plain PyTorch version on the
-             card, at the predict path's shape and at ragged, long-query and
-             padded shapes.
-4. timing  — kernel and plain version at the predict path's shape.
+             card, at the predict path's shape, at ragged, long-query and
+             padded shapes, and at the sparse HNSW search and selection
+             shapes (1<<30 pads on both sides).
+4. timing  — kernel and plain version at the predict path's shape, at
+             batch 1, and at the HNSW search shape.
 5. predict — XLinearModel.predict of 8,192 sparse queries through a random
              model of the Wiki-500K geometry (the repo's bench.py model:
              L=524,288, D=262,144, 64 weights per label, 16-way tree, beam 10,
@@ -37,6 +40,18 @@ non-zero:
              train, 8,192 labels, 16-way tree, leaves of 100): PIFA and the
              clustering on the card, XLinearModel.train twice, then 4,000
              test queries predicted through K1 (beam 10, top 10), P@1 >= 0.80.
+11. ann    — the repo's ANN geometries (benchmarks/README.md:42-133): (a)
+             synthetic SIFT, 100,000 x 128, l2, M=32, efC=100, built on the
+             card with the defaults (scan mode, bfloat16 search copy), exact
+             top-10 by a float64 matmul, recall@10 >= 0.99 at efS=100 of
+             10,000 queries, QPS at efS 50/100/200, 256 queries searched on
+             the card and on the CPU over the graph (>= 99% equal ids), saved,
+             loaded, searched again; (b) PQ4 (64 subspaces) grafted onto that
+             graph, packed and unpacked ids equal on 1,000 queries, recall@10
+             >= 0.95 at efS=200 (num_rerank 2 x efS); (c) the clustered sparse
+             corpus (100,000 x 500,000 CSR, ip) built and searched through K1,
+             tie-aware recall@10 >= 0.99 at efS=100; (d) PairwiseANN on (a)'s
+             base with a random Y, the card against the CPU.
 
 Every K1 launch of a phase's run is counted with the count set to 0 just
 before it.  The line before the last is a JSON object describing each kernel
@@ -75,7 +90,9 @@ def unique_rows(rng, n_rows, width, hi):
 def make_k1_case(N, K, P, Qn, D_feat, pad, seed):
     """K1 inputs (qids, qvals, w_packed) as numpy with frequent id matches;
     weight ids reach D_feat (the bias id); with ``pad`` some rows end in query
-    pad ids D_feat+1 (value 0) and zero-valued weight pad slots (id 0)."""
+    pad ids D_feat+1 (value 0) and zero-valued weight pad slots (id 0), as the
+    predict path pads them; with ``pad="hnsw"`` both sides end in SPARSE_PAD_ID
+    (1<<30, value 0), as the HNSW graph's sparse rows are padded."""
     rng = np.random.default_rng(seed)
     qids = unique_rows(rng, N, Qn, D_feat)
     qvals = rng.standard_normal((N, Qn)).astype(np.float32)
@@ -83,15 +100,23 @@ def make_k1_case(N, K, P, Qn, D_feat, pad, seed):
     wv = rng.standard_normal((N, K, P)).astype(np.float32)
     if pad:
         qpad = np.arange(Qn)[None, :] >= (Qn - rng.integers(0, Qn // 2 + 1, size=N))[:, None]
-        qids[qpad], qvals[qpad] = D_feat + 1, 0.0
+        qids[qpad], qvals[qpad] = SPARSE_PAD_ID if pad == "hnsw" else D_feat + 1, 0.0
         wpad = np.arange(P)[None, None, :] >= (P - rng.integers(0, P // 2 + 1, size=(N, K)))[:, :, None]
-        wi[wpad], wv[wpad] = 0, 0.0
+        wi[wpad], wv[wpad] = SPARSE_PAD_ID if pad == "hnsw" else 0, 0.0
     return qids, qvals, np.concatenate([wi, wv.view(np.int32)], axis=-1)
 
 
+# the sparse HNSW corpus's row cap (phase 11c: at most 68 nonzeros a row,
+# rounded up to 32) and the HNSW pad id of both K1 operands
+ANN_SPARSE_P = 96
+SPARSE_PAD_ID = 1 << 30
+
 # (name, N, K, P, Qn, pad, bias): the predict path's shape with and without the
 # bias term, a ragged shape, a query longer than one shared-memory chunk (512),
-# padded rows, and the batch-1 realtime session's shape
+# padded rows, the batch-1 realtime session's shape, and the sparse HNSW
+# shapes: a search step's gathered neighbors (2,048 queries x 4 popped nodes x
+# 64 neighbors) and one step of the lazy Alg-4 selection (candidate row against
+# the M=32 selected rows)
 K1_CASES = [
     ("main+bias", 1024, 160, 64, 256, False, True),
     ("main", 1024, 160, 64, 256, False, False),
@@ -99,6 +124,8 @@ K1_CASES = [
     ("long-query", 8, 37, 64, 4096, True, True),
     ("padded", 64, 160, 64, 256, True, True),
     ("batch-1", 1, 160, 64, 256, False, True),
+    ("hnsw gather-dots", 2048, 256, ANN_SPARSE_P, ANN_SPARSE_P, "hnsw", False),
+    ("hnsw lazy-select", 2048, 32, ANN_SPARSE_P, ANN_SPARSE_P, "hnsw", False),
 ]
 WIRE_DTYPES = ("float16", "bfloat16", "uint8")
 N_REALTIME, REALTIME_CAP = 256, 256
@@ -114,6 +141,19 @@ GOLDEN_ATOL = 0.02  # tests/test_golden.py's precision bar
 MR_DATA = dict(n_trn=20000, n_tst=4000, d=4096, L=8192, seed=7)
 MR_INDEX = dict(nr_splits=16, max_leaf_size=100)
 MR_BEAM, MR_TOPK, MR_MIN_P1 = 10, 10, 0.80
+# phase 11: the repo's two ANN geometries at their own sizes (benchmarks/README.md:42-133):
+# synthetic SIFT, 128-d l2 (scripts/ann_bench_data.py:26 make_data), and the
+# clustered TF-IDF-like corpus, 500,000-d CSR, ip (scripts/sparse_hnsw_bench.py:42 gen)
+ANN_DENSE_DATA = dict(n=100_000, nq=10_000, seed=7)
+ANN_SPARSE_DATA = dict(n=100_000, nq=2_000, d=500_000, seed=0)
+ANN_BUILD = dict(M=32, efC=100)
+ANN_TOPK = 10
+ANN_DENSE_EFS, ANN_SPARSE_EFS, ANN_PQ_EFS = (50, 100, 200), (50, 100), (100, 200)
+ANN_MIN_RECALL = 0.99  # recall@10 at efS=100, dense and sparse (tests/test_hnsw.py's bar)
+ANN_PQ_MIN_RECALL = 0.95  # PQ4 recall@10 at efS=200, num_rerank 2 x efS
+ANN_CPU_CHECK, ANN_PQ_CHECK, ANN_PQ_SUBSPACES = 256, 1000, 64
+ANN_MIN_AGREE = 0.99  # (row, rank) ids equal, card against the CPU over one graph
+ANN_PAIRS, ANN_LABELS = 4096, 1024  # PairwiseANN: (query, label) pairs; labels of a random Y
 
 
 def check_k1(device, cases=K1_CASES):
@@ -147,17 +187,17 @@ def check_k1(device, cases=K1_CASES):
     return worst
 
 
-def time_k1(device, N=1024, iters=20):
-    """Median ms of the kernel and of the plain version at the predict path's
-    shape (N queries, K=160, P=64, Qn=256), timed with CUDA events in
-    alternating turns."""
+def time_k1(device, N=1024, K=160, P=64, Qn=256, pad=False, bias=True, iters=20):
+    """Median ms of the kernel and of the plain version at one shape (default
+    the predict path's: N queries, K=160, P=64, Qn=256, with the bias term),
+    timed with CUDA events in alternating turns."""
     import torch
 
     from pecos_tpu_torch.ops.intersect import intersect_scores, intersect_scores_reference
 
-    D_feat = 1024
-    qids, qvals, w = make_k1_case(N, 160, 64, 256, D_feat, False, seed=1)
-    args = [torch.from_numpy(a).to(device) for a in (qids, qvals, w)] + [D_feat, 1.0]
+    D_feat = 4 * Qn
+    qids, qvals, w = make_k1_case(N, K, P, Qn, D_feat, pad, seed=1)
+    args = [torch.from_numpy(a).to(device) for a in (qids, qvals, w)] + ([D_feat, 1.0] if bias else [])
     fns = {"kernel": intersect_scores, "plain": intersect_scores_reference}
     for fn in fns.values():  # warm
         fn(*args)
@@ -485,9 +525,10 @@ def run_golden(device, smi):
     return launches
 
 
-def load_xmc_bench():
-    """scripts/xmc_bench.py as a module (its top level imports numpy and scipy only)."""
-    spec = importlib.util.spec_from_file_location("xmc_bench", os.path.join(HERE, "scripts", "xmc_bench.py"))
+def load_script(name):
+    """scripts/<name>.py as a module (xmc_bench, ann_bench_data and
+    sparse_hnsw_bench import numpy and scipy only at their top level)."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, "scripts", f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -504,7 +545,7 @@ def run_matched_recall(device, smi):
     from pecos_tpu_torch.xmc.xlinear import XLinearModel
 
     t0 = time.perf_counter()
-    X, Y, Xt, Yt = load_xmc_bench().make_data(**MR_DATA)
+    X, Y, Xt, Yt = load_script("xmc_bench").make_data(**MR_DATA)
     data_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     chain = Indexer.gen(LabelEmbeddingFactory.create(Y, X, method="pifa"), device=device, **MR_INDEX)
@@ -555,6 +596,295 @@ def run_matched_recall(device, smi):
     }
 
 
+def recall_at(ids, true_ids):
+    """Recall@k: the mean share of each row's true top-k ids that its returned row holds."""
+    return sum(int(np.isin(p, t).sum()) for p, t in zip(ids, true_ids)) / true_ids.size
+
+
+def exact_topk_l2(base, queries, k, device, chunk=2048):
+    """Exact l2 top-k ids, a plain float64 matmul on the card (the harness's own, not the port's)."""
+    import torch
+
+    X = torch.from_numpy(base).to(device, torch.float64)
+    xx = (X * X).sum(1)
+    out = []
+    for s in range(0, len(queries), chunk):
+        Q = torch.from_numpy(queries[s : s + chunk]).to(device, torch.float64)
+        d = (Q * Q).sum(1, keepdim=True) + xx[None, :] - 2.0 * (Q @ X.T)
+        out.append(torch.topk(d, k, dim=1, largest=False).indices.cpu().numpy())
+    return np.vstack(out)
+
+
+def sparse_tie_recall(ids, X, Q, gt_d):
+    """Tie-aware recall@k of ip search, the rule of scripts/sparse_hnsw_bench.py:160
+    tie_recall (a returned row counts when its exact distance is within the k-th
+    true distance, x(1 + 1e-4) + 1e-6), with each returned row's similarity
+    taken from X in float64."""
+    k = gt_d.shape[1]
+    thr = gt_d[:, k - 1] * (1 + 1e-4) + 1e-6
+    rows = np.clip(ids, 0, X.shape[0] - 1).ravel()
+    qrow = np.repeat(np.arange(Q.shape[0]), ids.shape[1])
+    sims = np.asarray(X[rows].astype(np.float64).multiply(Q[qrow].astype(np.float64)).sum(axis=1)).reshape(ids.shape)
+    d = np.where(ids >= 0, 1.0 - sims, np.inf)
+    return float((d <= thr[:, None]).mean())
+
+
+def best_time(fn, reps=2):
+    """(result of the last call, best seconds of ``reps`` calls); fn ends in a fetch."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def check_ann_agreement(ids, want_ids, what, dists=None, want_dists=None, atol=1e-4):
+    """Share of equal (row, rank) ids, which must be >= ANN_MIN_AGREE; the
+    distances of the equal ones within rtol=1e-4 and ``atol`` (float32 sums
+    in another order; an l2 distance |q|^2 + |x|^2 - 2<q, x> carries the
+    rounding of its largest term, so its callers pass 1e-6 x that term)."""
+    same = ids == want_ids
+    agree = float(same.mean())
+    print(f"{what}: {agree!r}")
+    if agree < ANN_MIN_AGREE:
+        raise RuntimeError(f"{what}: {agree!r} < {ANN_MIN_AGREE}")
+    if dists is not None:
+        err = np.abs(dists[same] - want_dists[same]) - 1e-4 * np.abs(want_dists[same])
+        if (err > atol).any():
+            raise RuntimeError(f"{what}: distances of agreeing ids differ by {float(err.max())!r} beyond rtol=1e-4, atol={atol!r}")
+    return agree
+
+
+def run_ann_dense(device, smi):
+    """Phase 11a: synthetic SIFT at 100K, built and searched on the card;
+    returns (model, base, queries, true top-10, numbers)."""
+    import torch
+
+    from pecos_tpu_torch.ann import HNSW
+    from pecos_tpu_torch.ann.hnsw.graph import read_flag
+
+    t0 = time.perf_counter()
+    base, queries = load_script("ann_bench_data").make_data(**ANN_DENSE_DATA)
+    true_ids = exact_topk_l2(base, queries, ANN_TOPK, device)
+    data_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reads0 = read_flag.syncs
+    t0 = time.perf_counter()
+    model = HNSW.train(base, metric_type="l2", device=device, **ANN_BUILD)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    build_reads = read_flag.syncs - reads0
+    levels = np.bincount(model.node_levels).tolist()
+    print(f"ann dense: data {base.shape} + {queries.shape[0]} queries and exact top-{ANN_TOPK} on the card in {data_s!r} s")
+    print(f"ann dense build [{smi}]: l2, M={ANN_BUILD['M']} efC={ANN_BUILD['efC']}, defaults (scan mode, intra_k 32, "
+          f"bfloat16 search copy): {build_s!r} s, peak device memory above the start {peak} bytes, "
+          f"{build_reads} host reads of loop flags; points per level {levels}")
+    numbers = {"build_s": build_s, "peak_bytes": peak, "build_reads": build_reads}
+    chunks = -(-queries.shape[0] // model.pred_params.batch_size)
+    for efS in ANN_DENSE_EFS:
+        reads0 = read_flag.syncs
+        (ids, dists), secs = best_time(lambda: model.predict(queries, efS=efS, topk=ANN_TOPK))
+        reads = (read_flag.syncs - reads0) / 2 / chunks
+        if ids.shape != (queries.shape[0], ANN_TOPK) or ids.min() < 0 or not np.isfinite(dists).all():
+            raise RuntimeError(f"ann dense efS={efS}: ids {ids.shape} from {ids.min()}, or distances not finite")
+        rec = recall_at(ids, true_ids)
+        numbers[f"efS{efS}"] = {"recall": rec, "qps": queries.shape[0] / secs}
+        print(f"ann dense predict efS={efS} [{smi}]: recall@{ANN_TOPK} {rec!r}, {queries.shape[0] / secs!r} QPS "
+              f"(best of 2, {secs!r} s), {reads!r} host reads per {model.pred_params.batch_size}-query search")
+    if numbers["efS100"]["recall"] < ANN_MIN_RECALL:
+        raise RuntimeError(f"ann dense: recall@10 {numbers['efS100']['recall']!r} < {ANN_MIN_RECALL} at efS=100")
+    # one chunk on the card and on the CPU over the same graph (batch composition changes results)
+    Qc, kw = queries[:ANN_CPU_CHECK], dict(efS=100, topk=ANN_TOPK, batch_size=ANN_CPU_CHECK)
+    ids_card, d_card = model.predict(Qc, **kw)
+    t0 = time.perf_counter()
+    ids_cpu, d_cpu = model.to("cpu").predict(Qc, **kw)
+    cpu_s = time.perf_counter() - t0
+    model.to(device)
+    norms = float((base * base).sum(1).max() + (Qc * Qc).sum(1).max())
+    check_ann_agreement(ids_card, ids_cpu, f"ann dense: id agreement with the CPU on {ANN_CPU_CHECK} queries "
+                        f"(CPU search {cpu_s!r} s)", d_card, d_cpu, atol=1e-6 * norms)
+    with tempfile.TemporaryDirectory(prefix="pecos_hnsw_") as folder:
+        t0 = time.perf_counter()
+        model.save(folder)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = HNSW.load(folder, device=device)
+        ids_again, _ = loaded.predict(Qc, **kw)
+        load_s = time.perf_counter() - t0
+    check_ann_agreement(ids_again, ids_card, f"ann dense: saved ({save_s!r} s), loaded and searched again "
+                        f"({load_s!r} s), ids equal to the first search")
+    return model, base, queries, true_ids, numbers
+
+
+def run_ann_pq(model, queries, true_ids, smi):
+    """Phase 11b: PQ4 codes grafted onto phase 11a's graph; returns numbers."""
+    import torch
+
+    from pecos_tpu_torch.ann.hnsw import HNSWProductQuantizer4Bits
+
+    t0 = time.perf_counter()
+    pq = HNSWProductQuantizer4Bits.from_hnsw(model, num_subspaces=ANN_PQ_SUBSPACES)
+    torch.cuda.synchronize()
+    pq_s = time.perf_counter() - t0
+    Qc, kw = queries[:ANN_PQ_CHECK], dict(efS=100, topk=ANN_TOPK, num_rerank=200)
+    ids_un, d_un = pq.predict(Qc, packed="false", **kw)
+    ids_pk, d_pk = pq.predict(Qc, packed="true", **kw)
+    if not (np.array_equal(ids_un, ids_pk) and np.array_equal(d_un, d_pk)):
+        raise RuntimeError(f"ann pq4: packed ids differ from unpacked in {int((ids_un != ids_pk).sum())} places")
+    print(f"ann pq4 [{smi}]: from_hnsw S={ANN_PQ_SUBSPACES} in {pq_s!r} s; packed and unpacked ids equal on "
+          f"{ANN_PQ_CHECK} queries (efS=100, num_rerank=200)")
+    numbers = {"train_s": pq_s}
+    for efS in ANN_PQ_EFS:
+        (ids, dists), secs = best_time(lambda: pq.predict(queries, efS=efS, topk=ANN_TOPK, num_rerank=2 * efS))
+        if ids.min() < 0 or not np.isfinite(dists).all():
+            raise RuntimeError(f"ann pq4 efS={efS}: missing ids or distances not finite")
+        rec = recall_at(ids, true_ids)
+        numbers[f"efS{efS}"] = {"recall": rec, "qps": queries.shape[0] / secs}
+        print(f"ann pq4 predict efS={efS} num_rerank={2 * efS} [{smi}]: recall@{ANN_TOPK} {rec!r}, "
+              f"{queries.shape[0] / secs!r} QPS (best of 2, {secs!r} s)")
+    if numbers["efS200"]["recall"] < ANN_PQ_MIN_RECALL:
+        raise RuntimeError(f"ann pq4: recall@10 {numbers['efS200']['recall']!r} < {ANN_PQ_MIN_RECALL} at efS=200")
+    return numbers
+
+
+def run_ann_pairwise(base, device, smi):
+    """Phase 11d: PairwiseANN over phase 11a's base with a random Y, the card against the CPU."""
+    from pecos_tpu_torch.ann.pairwise import PairwiseANN
+
+    rng = np.random.default_rng(SEED + 11)
+    n = base.shape[0]
+    Y = smat.csr_matrix(
+        (rng.uniform(0.1, 1.0, size=3 * n).astype(np.float32), (np.repeat(np.arange(n), 3), rng.integers(0, ANN_LABELS, size=3 * n))),
+        shape=(n, ANN_LABELS),
+    )
+    keys = rng.integers(0, ANN_LABELS, size=ANN_PAIRS).astype(np.uint32)
+    Qp = base[rng.integers(0, n, size=ANN_PAIRS)] + rng.standard_normal((ANN_PAIRS, base.shape[1])).astype(np.float32)
+    card = PairwiseANN.train(base, Y, metric_type="l2", device=device)
+    (I, M, D, V), secs = best_time(lambda: card.predict(Qp, keys))
+    Ic, Mc, Dc, Vc = PairwiseANN.train(base, Y, metric_type="l2", device="cpu").predict(Qp, keys)
+    if not np.array_equal(M, Mc) or int(M.sum()) == 0:
+        raise RuntimeError("ann pairwise: found masks differ from the CPU's, or nothing found")
+    check_ann_agreement(I, Ic, f"ann pairwise [{smi}]: {ANN_PAIRS} (query, label) pairs over {n} rows, "
+                        f"{ANN_LABELS} labels (up to {int(np.diff(Y.tocsc().indptr).max())} rows a label), "
+                        f"{secs!r} s on the card; id agreement with the CPU", D, Dc,
+                        atol=1e-6 * float((base * base).sum(1).max() + (Qp * Qp).sum(1).max()))
+    return {"s": secs}
+
+
+def run_ann_sparse(device, smi):
+    """Phase 11c: the clustered sparse corpus, built and searched on the card
+    through K1; returns (K1 launches of the build, of the efS=100 predict, numbers)."""
+    import torch
+
+    from pecos_tpu_torch.ann import HNSW
+    from pecos_tpu_torch.ann.hnsw.graph import read_flag
+    from pecos_tpu_torch.ops.intersect import intersect_scores
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="pecos_sparse_ann_") as folder:
+        load_script("sparse_hnsw_bench").gen(folder, **ANN_SPARSE_DATA)
+        X, Q = (smat.load_npz(os.path.join(folder, f"sparse_{w}.npz")).tocsr() for w in ("base", "queries"))
+        gt_i, gt_d = (np.load(os.path.join(folder, f"sparse_gt_{w}.npy")) for w in ("i", "d"))
+    X.sort_indices()
+    Q.sort_indices()
+    data_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reads0 = read_flag.syncs
+    intersect_scores.launches = 0
+    t0 = time.perf_counter()
+    model = HNSW.train(X, metric_type="ip", data_type="csr", device=device, **ANN_BUILD)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = intersect_scores.launches
+    peak = torch.cuda.max_memory_allocated() - mem0
+    row_cap = model._device()[0].feats.shape[1]
+    print(f"ann sparse: data {X.shape}, {X.nnz / X.shape[0]!r} nonzeros a row (row cap {row_cap}), {Q.shape[0]} queries, "
+          f"made with its ground truth in {data_s!r} s")
+    print(f"ann sparse build [{smi}]: ip, CSR, M={ANN_BUILD['M']} efC={ANN_BUILD['efC']}: {build_s!r} s, peak device "
+          f"memory above the start {peak} bytes, {read_flag.syncs - reads0} host reads of loop flags, K1 launches {build_launches}")
+    if row_cap != ANN_SPARSE_P:
+        raise RuntimeError(f"ann sparse: row cap {row_cap} != {ANN_SPARSE_P}, the K1 HNSW cases' width")
+    if build_launches <= 0:
+        raise RuntimeError("ann sparse build: K1 was not launched")
+    numbers = {"build_s": build_s, "peak_bytes": peak, "build_launches": build_launches}
+    predict_launches = 0
+    for efS in ANN_SPARSE_EFS:
+        intersect_scores.launches = 0
+        ids, dists = model.predict(Q, efS=efS, topk=ANN_TOPK)
+        launches = intersect_scores.launches
+        if efS == 100:
+            predict_launches = launches
+        (ids, dists), secs = best_time(lambda: model.predict(Q, efS=efS, topk=ANN_TOPK))
+        if ids.min() < 0 or not np.isfinite(dists).all():
+            raise RuntimeError(f"ann sparse efS={efS}: missing ids or distances not finite")
+        rec, plain = sparse_tie_recall(ids, X, Q, gt_d), recall_at(ids, gt_i)
+        numbers[f"efS{efS}"] = {"recall": rec, "plain_recall": plain, "qps": Q.shape[0] / secs}
+        print(f"ann sparse predict efS={efS} [{smi}]: tie-aware recall@{ANN_TOPK} {rec!r} (plain {plain!r}), "
+              f"{Q.shape[0] / secs!r} QPS (best of 2, {secs!r} s), K1 launches {launches}")
+        if launches <= 0:
+            raise RuntimeError(f"ann sparse predict efS={efS}: K1 was not launched")
+    if numbers["efS100"]["recall"] < ANN_MIN_RECALL:
+        raise RuntimeError(f"ann sparse: recall@10 {numbers['efS100']['recall']!r} < {ANN_MIN_RECALL} at efS=100")
+    return build_launches, predict_launches, numbers
+
+
+def print_profile(prof, wall_s, what, smi, top=14):
+    """Device time by kernel from a torch.profiler run, its share of the wall
+    time, and the host's launch and sync calls."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    t = lambda e: e.self_device_time_total
+    total = sum(t(e) for e in dev)
+    print(f"{what} profile [{smi}]: wall {wall_s!r} s, device time {total / 1e6!r} s "
+          f"(busy {total / 1e6 / wall_s!r} of the wall), {sum(e.count for e in dev)} device operations")
+    for e in sorted(dev, key=t, reverse=True)[:top]:
+        print(f"  {t(e) / 1e3:10.1f} ms {100 * t(e) / max(total, 1):5.1f}% {e.count:8d}x {e.key[:90]}")
+    host = {e.key: e for e in events if e.key in ("cudaLaunchKernel", "cudaStreamSynchronize", "cudaMemcpyAsync", "cudaDeviceSynchronize")}
+    print("  host: " + ", ".join(f"{k} {e.count}x {e.cpu_time_total / 1e3:.1f} ms" for k, e in sorted(host.items())))
+
+
+def profile_ann(device, smi):
+    """``--profile-ann``: torch.profiler over one dense build (phase 11a's
+    data) and one sparse predict at efS=100 (phase 11c's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pecos_tpu_torch.ann import HNSW
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    base, _ = load_script("ann_bench_data").make_data(**ANN_DENSE_DATA)
+    HNSW.train(base[:8192], metric_type="l2", device=device, build_scan="true", **ANN_BUILD)  # first launches
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        HNSW.train(base, metric_type="l2", device=device, **ANN_BUILD)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_profile(prof, wall, "ann dense build", smi)
+    del prof
+    with tempfile.TemporaryDirectory(prefix="pecos_sparse_ann_") as folder:
+        load_script("sparse_hnsw_bench").gen(folder, **ANN_SPARSE_DATA)
+        X, Q = (smat.load_npz(os.path.join(folder, f"sparse_{w}.npz")).tocsr() for w in ("base", "queries"))
+    model = HNSW.train(X, metric_type="ip", data_type="csr", device=device, **ANN_BUILD)
+    model.predict(Q, efS=100, topk=ANN_TOPK)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        model.predict(Q, efS=100, topk=ANN_TOPK)
+        wall = time.perf_counter() - t0
+    print_profile(prof, wall, "ann sparse predict efS=100", smi)
+
+
 def main():
     import torch
 
@@ -582,6 +912,9 @@ def main():
     with open(_build.LOG_PATH) as f:
         ptxas = " | ".join(l.strip() for l in f if "registers" in l or "bytes stack" in l)
     print(f"build: nvcc {secs:.2f} s -> {_build.LIB_PATH}; ptxas: {ptxas}")
+    if sys.argv[1:] == ["--profile-ann"]:
+        profile_ann(device, smi)
+        return 0
 
     # 3. K1 against its plain version
     max_err = check_k1(device)
@@ -593,6 +926,13 @@ def main():
     k1_ms, plain1_ms = time_k1(device, N=1)
     print(f"K1 timing (N=1 K=160 P=64 Qn=256, median of 20, CUDA events): kernel {k1_ms!r} ms, "
           f"plain {plain1_ms!r} ms [{smi}]")
+    P_ = ANN_SPARSE_P
+    kh_ms, plainh_ms = time_k1(device, N=2048, K=256, P=P_, Qn=P_, pad="hnsw", bias=False, iters=10)
+    print(f"K1 timing (HNSW gather-dots N=2048 K=256 P={P_} Qn={P_}, median of 10, CUDA events): kernel {kh_ms!r} ms, "
+          f"plain {plainh_ms!r} ms [{smi}]")
+    ks_ms, plains_ms = time_k1(device, N=2048, K=32, P=P_, Qn=P_, pad="hnsw", bias=False, iters=10)
+    print(f"K1 timing (HNSW lazy-select N=2048 K=32 P={P_} Qn={P_}, median of 10, CUDA events): kernel {ks_ms!r} ms, "
+          f"plain {plains_ms!r} ms [{smi}]")
 
     # 5. full-width predict
     t0 = time.perf_counter()
@@ -662,16 +1002,29 @@ def main():
     check_solvers(device, smi)
     golden_launches = run_golden(device, smi)
     train_launches, _ = run_matched_recall(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 11. ANN: dense HNSW build and search, PQ4 on its graph, sparse HNSW through K1, PairwiseANN
+    hnsw, base, queries, true_ids, _ = run_ann_dense(device, smi)
+    run_ann_pq(hnsw, queries, true_ids, smi)
+    del hnsw, queries, true_ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    sparse_build_launches, sparse_predict_launches, _ = run_ann_sparse(device, smi)
+    run_ann_pairwise(base, device, smi)
 
     print(f"gpu: {smi}")
     kernels = [{
         "name": "intersect_scores", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": plain_ms,
-        "batch1_ms": k1_ms, "batch1_plain_ms": plain1_ms,
+        "batch1_ms": k1_ms, "batch1_plain_ms": plain1_ms, "hnsw_ms": kh_ms, "hnsw_plain_ms": plainh_ms,
+        "hnsw_select_ms": ks_ms, "hnsw_select_plain_ms": plains_ms,
         "launches_by_path": {
             "predict": launches, **{f"wire_{dt}": n for dt, n in wire_launches.items()},
             "realtime": realtime_launches, "compiled_eager": eager_launches, "compiled_lazy": lazy_launches,
             "train_golden": golden_launches, "train_predict": train_launches,
+            "ann_sparse_build": sparse_build_launches, "ann_sparse_predict": sparse_predict_launches,
         },
     }]
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""PECOS on PyTorch + CUDA: XR-Linear training and prediction for one NVIDIA GPU.
+"""PECOS on PyTorch + CUDA: XR-Linear training and prediction, and ANN search, for one NVIDIA GPU.
 
 The port of ``pecos_tpu`` (JAX on TPU) to PyTorch, with every Pallas kernel
 replaced by a CUDA kernel written by hand for Hopper (``sm_90a``).  Module
@@ -8,6 +8,8 @@ place:
 - ``pecos_tpu_torch.xmc``   — XR-Linear models, their Newton-CG training
   (``xmc/solvers.py``), balanced clustering (``xmc/clustering.py``) and the
   beam-search predict engine (``xmc/inference.py``).
+- ``pecos_tpu_torch.ann``   — HNSW build and search over dense or sparse
+  features (``ann/hnsw/graph.py``), PQ4 (``ann/hnsw/pq.py``) and PairwiseANN.
 - ``pecos_tpu_torch.ops``   — the hand-written kernels, their plain PyTorch
   versions and the build that compiles them at first use.
 - ``pecos_tpu_torch.utils`` — host helpers (sparse-matrix I/O, metrics, cluster

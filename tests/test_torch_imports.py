@@ -1,7 +1,7 @@
 """The port stands without JAX: every module of pecos_tpu_torch, and
-chip_smoke.py, import with jax blocked; params files the JAX package writes
-load without importing it (ROADMAP F6); nothing runs on a CUDA path without
-a GPU or without nvcc."""
+chip_smoke.py, import with jax blocked; params files and HNSW folders the JAX
+package writes load without importing it (ROADMAP F6); nothing runs on a CUDA
+path without a GPU or without nvcc."""
 
 import os
 import shutil
@@ -62,6 +62,31 @@ print("ok")
 """
 
 
+_ANN_MODULES = """
+import sys
+sys.modules["jax"] = None
+import pecos_tpu_torch.ann, pecos_tpu_torch.ann.hnsw.train, pecos_tpu_torch.ann.hnsw.predict, pecos_tpu_torch.ann.pairwise
+from pecos_tpu_torch.ann import HNSW
+from pecos_tpu_torch.ann.hnsw import HNSWProductQuantizer4Bits
+from pecos_tpu_torch.ann.pairwise import PairwiseANN
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (m in ("jax", "pecos_tpu") or m.startswith(("jax.", "pecos_tpu."))))
+assert not leaked, leaked
+"""
+
+# an HNSW folder the JAX package saved searches in the port without jax
+_LOAD_JAX_HNSW = """
+import sys
+import numpy as np
+sys.modules["jax"] = None
+from pecos_tpu_torch.ann import HNSW
+model = HNSW.load(sys.argv[1], device="cpu")
+ids, dists = model.predict(np.load(sys.argv[2]), efS=20, topk=5)
+assert (ids == np.load(sys.argv[3])).mean() >= 0.99, ids
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+print("ok")
+"""
+
+
 def _run(args, cwd):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True, timeout=120)
@@ -70,12 +95,32 @@ def _run(args, cwd):
 def test_port_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 18  # every module of the package was walked
+    assert int(proc.stdout.strip()) >= 28  # every module of the package was walked, ann/ included
 
 
 def test_train_modules_import_without_jax():
     proc = _run(["-c", _TRAIN_MODULES], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_ann_modules_import_without_jax():
+    proc = _run(["-c", _ANN_MODULES], cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_jax_hnsw_folder_loads_without_jax(tmp_path):
+    import numpy as np
+
+    from pecos_tpu.ann import HNSW as JaxHNSW
+
+    rng = np.random.default_rng(0)
+    X, Q = rng.standard_normal((120, 8)).astype(np.float32), rng.standard_normal((6, 8)).astype(np.float32)
+    model = JaxHNSW.train(X, M=6, efC=20, metric_type="l2", max_level_upper_bound=2)
+    model.save(str(tmp_path / "hnsw"))
+    np.save(tmp_path / "Q.npy", Q)
+    np.save(tmp_path / "ids.npy", model.predict(Q, efS=20, topk=5)[0])
+    proc = _run(["-c", _LOAD_JAX_HNSW, str(tmp_path / "hnsw"), str(tmp_path / "Q.npy"), str(tmp_path / "ids.npy")], cwd=REPO)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 def test_jax_params_skeleton_loads_without_jax(tmp_path):
