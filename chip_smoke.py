@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch + CUDA port (pecos_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # phases 1-11, the result lines last
-    python3 chip_smoke.py --profile-ann    # phases 1-2, then torch.profiler over phase 11's dense build and sparse predict
+    python3 chip_smoke.py                      # phases 1-11, the result lines last
+    python3 chip_smoke.py --profile-ann        # phases 1-2, then torch.profiler over phase 11's dense build and sparse predict
+    python3 chip_smoke.py --profile-predict    # phases 1-2, then torch.profiler over phase 6's batch loop and one predict
 
 Phases, each printing a line; any failed check raises and the run exits
 non-zero:
@@ -9,11 +10,19 @@ non-zero:
 1. device  — needs torch.cuda; prints the card's name and power limit.
 2. build   — compiles the CUDA kernels from pecos_tpu_torch/ops/csrc.
 3. K1      — the intersection kernel against its plain PyTorch version on the
-             card, at the predict path's shape, at ragged, long-query and
-             padded shapes, and at the sparse HNSW search and selection
-             shapes (1<<30 pads on both sides).
-4. timing  — kernel and plain version at the predict path's shape, at
-             batch 1, and at the HNSW search shape.
+             card: over gathered blocks (intersect_scores) at the predict
+             path's shape, at ragged, long-query and padded shapes, and at
+             the sparse HNSW search and selection shapes (1<<30 pads on both
+             sides); and by row id (intersect_scores_rows) as the callers
+             call it: parent-layout rows with -1 rows at the predict and
+             batch-1 shapes, a permutation of table rows at the HNSW
+             gather-dots shape, lazy selection with empty slots, a query
+             above one hash table's capacity, an odd P, and duplicate
+             query ids.
+4. timing  — K1 by row id at the four shapes of the main paths (predict,
+             batch 1, HNSW gather-dots, lazy selection), the L2 flushed before
+             each launch: kernel, plain version and a torch.searchsorted
+             composite, beside the bound (bytes over 3.35 TB/s).
 5. predict — XLinearModel.predict of 8,192 sparse queries through a random
              model of the Wiki-500K geometry (the repo's bench.py model:
              L=524,288, D=262,144, 64 weights per label, 16-way tree, beam 10,
@@ -127,6 +136,35 @@ K1_CASES = [
     ("hnsw gather-dots", 2048, 256, ANN_SPARSE_P, ANN_SPARSE_P, "hnsw", False),
     ("hnsw lazy-select", 2048, 32, ANN_SPARSE_P, ANN_SPARSE_P, "hnsw", False),
 ]
+# K1 by row id: (name, N, K, P, Qn, layout, pad, bias, table rows), as the
+# callers pass rows, then a query above one table's capacity (512), an odd P
+# and duplicate query ids. layout "parents": the rows of 10 beam parents' 16
+# children each in a parent_packed table of 4,096 parents, some -1; "perm":
+# a random permutation of the table's rows; "select": the lazy selection's
+# index into the HNSW corpus's rows, -1 past each row's count; "dups":
+# random rows
+K1_ROW_CASES = [
+    ("predict by parent rows", 1024, 160, 64, 256, "parents", False, True, 4096 * NR_SPLITS),
+    ("batch-1 by parent rows", 1, 160, 64, 256, "parents", False, True, 4096 * NR_SPLITS),
+    ("hnsw gather-dots by id", 2048, 256, ANN_SPARSE_P, ANN_SPARSE_P, "perm", "hnsw", False, 2048 * 256),
+    ("hnsw lazy-select by id", 2048, 32, ANN_SPARSE_P, ANN_SPARSE_P, "select", "hnsw", False, 100_000),
+    ("above one table", 8, 37, 64, 5000, "perm", True, True, 8 * 37),
+    ("odd P", 5, 7, 13, 600, "perm", True, True, 5 * 7),
+    ("duplicate query ids", 64, 160, 64, 256, "dups", False, True, 20_000),
+]
+# the timed shapes: (name, N, K, P, Qn, layout, pad, bias, table rows): the
+# last plabel layer's parent_packed (32,768 parents x 16 children), and the
+# sparse HNSW corpus's 100,000 packed rows
+K1_TIMED = [
+    ("predict", 1024, 160, 64, 256, "parents", False, True, (L // NR_SPLITS) * NR_SPLITS),
+    ("batch-1", 1, 160, 64, 256, "parents", False, True, (L // NR_SPLITS) * NR_SPLITS),
+    ("hnsw gather-dots", 2048, 256, ANN_SPARSE_P, ANN_SPARSE_P, "perm", "hnsw", False, 100_000),
+    ("hnsw lazy-select", 2048, 32, ANN_SPARSE_P, ANN_SPARSE_P, "select", "hnsw", False, 100_000),
+]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet, at 700 W
+FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, the same sheet
+L2_FLUSH_BYTES = 256 << 20  # written between timed launches: the 50 MB L2 starts cold
+SLEEP_CYCLES = 1 << 27  # ~70 ms of the card's clock, while the host queues timed launches
 WIRE_DTYPES = ("float16", "bfloat16", "uint8")
 N_REALTIME, REALTIME_CAP = 256, 256
 N_COMPILED = 1024
@@ -187,30 +225,153 @@ def check_k1(device, cases=K1_CASES):
     return worst
 
 
-def time_k1(device, N=1024, K=160, P=64, Qn=256, pad=False, bias=True, iters=20):
-    """Median ms of the kernel and of the plain version at one shape (default
-    the predict path's: N queries, K=160, P=64, Qn=256, with the bias term),
-    timed with CUDA events in alternating turns."""
+def make_rows_case(device, N, K, P, Qn, layout, pad, bias, R, seed):
+    """K1 by-id inputs on ``device``: (qids, qvals, table (R, 2P), rows (N, K)
+    int64).  Queries as make_k1_case's; the table's rows hold random ids in
+    [0, 4*Qn] (the bias id 4*Qn among them), values from a normal, and with
+    ``pad`` a zero-valued tail (id 0, or SPARSE_PAD_ID with pad="hnsw");
+    ``layout`` sets the index as K1_ROW_CASES says."""
     import torch
 
-    from pecos_tpu_torch.ops.intersect import intersect_scores, intersect_scores_reference
-
     D_feat = 4 * Qn
-    qids, qvals, w = make_k1_case(N, K, P, Qn, D_feat, pad, seed=1)
-    args = [torch.from_numpy(a).to(device) for a in (qids, qvals, w)] + ([D_feat, 1.0] if bias else [])
-    fns = {"kernel": intersect_scores, "plain": intersect_scores_reference}
-    for fn in fns.values():  # warm
-        fn(*args)
-    times = {k: [] for k in fns}
+    qids, qvals, _ = make_k1_case(N, 1, 8, Qn, D_feat, pad, seed)
+    if layout == "dups":  # every other nonzero repeats its neighbour's id, with its own value
+        qids[:, 1::2] = qids[:, 0::2]
+    gen = torch.Generator(device).manual_seed(seed)
+    ids = torch.randint(0, D_feat + 1, (R, P), generator=gen, device=device, dtype=torch.int32)
+    vals = torch.randn((R, P), generator=gen, device=device)
+    if pad:
+        tail = torch.randint(0, P // 2 + 1, (R, 1), generator=gen, device=device)
+        empty = torch.arange(P, device=device)[None, :] >= P - tail
+        ids[empty], vals[empty] = SPARSE_PAD_ID if pad == "hnsw" else 0, 0.0
+    if layout == "parents":  # missing children: zero rows of parent_packed
+        gone = torch.rand((R,), generator=gen, device=device) < 0.05
+        ids[gone], vals[gone] = 0, 0.0
+    table = torch.cat([ids, vals.view(torch.int32)], dim=1)
+    if layout == "parents":
+        parents = torch.randint(0, R // NR_SPLITS, (N, K // NR_SPLITS), generator=gen, device=device)
+        rows = (parents[:, :, None] * NR_SPLITS + torch.arange(NR_SPLITS, device=device)).reshape(N, K)
+        rows[torch.rand((N, K), generator=gen, device=device) < 0.02] = -1
+    elif layout == "perm":
+        perm = torch.randperm(R, generator=gen, device=device)
+        rows = perm[torch.arange(N * K, device=device) % R].reshape(N, K)
+    else:
+        rows = torch.randint(0, R, (N, K), generator=gen, device=device)
+        if layout == "select":  # slots past each row's count are empty
+            count = torch.randint(0, K + 1, (N, 1), generator=gen, device=device)
+            rows[torch.arange(K, device=device)[None, :] >= count] = -1
+    q, v = torch.from_numpy(qids).to(device), torch.from_numpy(qvals).to(device)
+    return q, v, table, rows, ((D_feat, 1.0) if bias else ())
+
+
+def check_k1_rows(device, cases=K1_ROW_CASES):
+    """intersect_scores_rows vs its plain version on ``device`` for every
+    by-id case; returns the max abs error.  Tolerance as check_k1's (the order
+    of the final P-sum and of duplicate ids' sum differ)."""
+    import torch
+
+    from pecos_tpu_torch.ops.intersect import intersect_scores_rows, intersect_scores_rows_reference
+
+    worst = 0.0
+    for name, N, K, P, Qn, layout, pad, bias, R in cases:
+        q, v, table, rows, bias_args = make_rows_case(device, N, K, P, Qn, layout, pad, bias, R, seed=N + K + Qn)
+        got = intersect_scores_rows(q, v, table, rows, *bias_args)
+        want = intersect_scores_rows_reference(q, v, table, rows, *bias_args)
+        t_abs = torch.cat([table[:, :P], table[:, P:].view(torch.float32).abs().view(torch.int32)], dim=1)
+        scale = intersect_scores_rows_reference(q, v.abs(), t_abs, rows, *bias_args).max().item()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        err = (got - want).abs()
+        bad = int((err > 1e-5 * want.abs() + 1e-6 * scale).sum())
+        max_err = err.max().item()
+        empty = int((rows < 0).sum())
+        print(f"K1 {name} N={N} K={K} P={P} Qn={Qn} table {tuple(table.shape)}, {empty} rows -1: "
+              f"max_abs_err={max_err!r} scale={scale!r} bad={bad}")
+        if bad or not bool(torch.isfinite(got).all()) or bool((got[rows < 0] != 0).any()):
+            raise RuntimeError(f"K1 {name}: {bad} entries outside tolerance (max abs err {max_err!r}) or a -1 row not 0")
+        worst = max(worst, max_err)
+    return worst
+
+
+def k1_composite(qids, qvals, table, rows, bias_id=None, bias_val=0.0):
+    """K1's function from torch operations: sorted query ids, the weight
+    ids' positions among them (torch.searchsorted), gather, compare,
+    multiply, sum.  A yardstick the port never calls: it takes the first of
+    repeated query ids only, so it agrees with K1 where the nonzero ids are
+    unique (and every pad's value is 0)."""
+    import torch
+
+    from pecos_tpu_torch.ops.intersect import split_packed
+
+    qs, order = torch.sort(qids, dim=1)
+    vs = qvals.gather(1, order)
+    w = torch.where((rows >= 0)[..., None], table[rows.clamp(min=0)], 0)
+    wi, wv = split_packed(w)
+    N, K, P = wi.shape
+    flat = wi.reshape(N, K * P)
+    pos = torch.searchsorted(qs, flat).clamp(max=qs.shape[1] - 1)
+    g = torch.where(qs.gather(1, pos) == flat, vs.gather(1, pos), 0.0).reshape(N, K, P)
+    out = (g * wv).sum(dim=-1)
+    if bias_id is not None:
+        out = out + bias_val * torch.where(wi == bias_id, wv, 0.0).sum(dim=-1)
+    return out
+
+
+def k1_bound(q, table, rows, P):
+    """(bound ms, "bytes" or "operations", bytes) of one K1 call on these
+    inputs: the table rows it must read (each distinct row once), the index,
+    the queries and the output, over the HBM rate; its multiply-adds (rows
+    that are not -1) over the float32 rate."""
+    used = rows[rows >= 0]
+    n_bytes = int(used.unique().numel()) * 2 * P * 4 + rows.numel() * 8 + 2 * q.numel() * 4 + rows.numel() * 4
+    ops = 2 * int(used.numel()) * P
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), n_bytes
+
+
+def time_k1(device, name, N, K, P, Qn, layout, pad, bias, R, iters):
+    """K1 by row id at one of the K1_TIMED shapes: median ms of the kernel,
+    the plain version and the searchsorted composite, in turns, each launch
+    timed with CUDA events after a write of L2_FLUSH_BYTES, all queued behind
+    a sleep of the card; with the bound."""
+    import torch
+
+    from pecos_tpu_torch.ops.intersect import intersect_scores_rows, intersect_scores_rows_reference
+
+    q, v, table, rows, bias_args = make_rows_case(device, N, K, P, Qn, layout, pad, bias, R, seed=1)
+    fns = {
+        "kernel": lambda: intersect_scores_rows(q, v, table, rows, *bias_args),
+        "plain": lambda: intersect_scores_rows_reference(q, v, table, rows, *bias_args),
+        "composite": lambda: k1_composite(q, v, table, rows, *bias_args),
+    }
+    outs = {key: fn() for key, fn in fns.items()}  # warm
+    err = (outs["composite"] - outs["plain"]).abs().max().item()
+    if not err <= 1e-4 * max(outs["plain"].abs().max().item(), 1.0):
+        raise RuntimeError(f"K1 timing {name}: the composite differs from the plain version by {err!r}")
+    del outs
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    events = {key: [] for key in fns}
+    # the card sleeps while the host queues every launch, so no event
+    # interval holds host time (each wrapper's Python and ctypes overhead)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     for i in range(iters):
-        for key in (("kernel", "plain") if i % 2 == 0 else ("plain", "kernel")):
+        for key in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            flush.fill_(float(i))
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            fns[key](*args)
+            fns[key]()
             end.record()
-            end.synchronize()
-            times[key].append(start.elapsed_time(end))
-    return statistics.median(times["kernel"]), statistics.median(times["plain"])
+            events[key].append((start, end))
+    torch.cuda.synchronize()
+    times = {key: [s.elapsed_time(e) for s, e in ev] for key, ev in events.items()}
+    bound_ms, bound_by, n_bytes = k1_bound(q, table, rows, P)
+    ms = {key: statistics.median(t) for key, t in times.items()}
+    return {
+        "N": N, "K": K, "P": P, "Qn": Qn, "table_rows": R, "ms": ms["kernel"], "plain_ms": ms["plain"],
+        "composite_ms": ms["composite"], "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+        "share": bound_ms / ms["kernel"],
+    }
 
 
 def build_chain(L_=L, D_=D, nnz=NNZ_PER_LABEL, nr_splits=NR_SPLITS, seed=SEED):
@@ -885,6 +1046,53 @@ def profile_ann(device, smi):
     print_profile(prof, wall, "ann sparse predict efS=100", smi)
 
 
+def batch_runner(compiled, X, device):
+    """Phase 6's compute-only call: one BATCH-query padded batch already on
+    the card through compiled.predict_padded."""
+    import torch
+
+    from pecos_tpu_torch.xmc.inference import prepare_queries_padded
+
+    ids, vals = prepare_queries_padded(X[:BATCH], cap=Q_NNZ)
+    ids_d, vals_d = torch.from_numpy(ids).to(device), torch.from_numpy(vals).to(device)
+    pp_names = ("l3-hinge",) * compiled.depth
+    has_dense = compiled.uses_dense_queries(BATCH, Q_NNZ)
+    return lambda: compiled.predict_padded(
+        ids_d, vals_d, beam_size=BEAM, only_topk=TOPK, pp_names=pp_names, has_dense=has_dense
+    )
+
+
+def profile_predict(device, smi, iters=20):
+    """``--profile-predict``: torch.profiler over phase 6's batch loop (kernel
+    time by name) and over one end-to-end predict of phase 5's queries (the
+    device's traced busy share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    Ws, Cs = build_chain()
+    X = make_queries()
+    xlm = xlinear(Ws, Cs, device)
+    run = batch_runner(xlm.model._get_compiled(), X, device)
+    kw = dict(beam_size=BEAM, only_topk=TOPK)
+    xlm.predict(X, **kw)  # warm
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_profile(prof, wall, f"predict batch loop ({iters} x {BATCH} queries)", smi)
+    del prof
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        xlm.predict(X, **kw)
+        wall = time.perf_counter() - t0
+    print_profile(prof, wall, f"predict end to end ({N_QUERIES} queries)", smi)
+
+
 def main():
     import torch
 
@@ -893,7 +1101,6 @@ def main():
         return 1
     from pecos_tpu_torch.ops import _build
     from pecos_tpu_torch.ops.intersect import intersect_scores
-    from pecos_tpu_torch.xmc.inference import prepare_queries_padded
 
     # 1. device
     device = torch.device("cuda", 0)
@@ -915,24 +1122,25 @@ def main():
     if sys.argv[1:] == ["--profile-ann"]:
         profile_ann(device, smi)
         return 0
+    if sys.argv[1:] == ["--profile-predict"]:
+        profile_predict(device, smi)
+        return 0
 
-    # 3. K1 against its plain version
-    max_err = check_k1(device)
+    # 3. K1 against its plain version: over gathered blocks, then by row id
+    max_err = max(check_k1(device), check_k1_rows(device))
 
-    # 4. K1 timing
-    k_ms, plain_ms = time_k1(device)
-    print(f"K1 timing (N=1024 K=160 P=64 Qn=256, median of 20, CUDA events): kernel {k_ms!r} ms, "
-          f"plain {plain_ms!r} ms [{smi}]")
-    k1_ms, plain1_ms = time_k1(device, N=1)
-    print(f"K1 timing (N=1 K=160 P=64 Qn=256, median of 20, CUDA events): kernel {k1_ms!r} ms, "
-          f"plain {plain1_ms!r} ms [{smi}]")
-    P_ = ANN_SPARSE_P
-    kh_ms, plainh_ms = time_k1(device, N=2048, K=256, P=P_, Qn=P_, pad="hnsw", bias=False, iters=10)
-    print(f"K1 timing (HNSW gather-dots N=2048 K=256 P={P_} Qn={P_}, median of 10, CUDA events): kernel {kh_ms!r} ms, "
-          f"plain {plainh_ms!r} ms [{smi}]")
-    ks_ms, plains_ms = time_k1(device, N=2048, K=32, P=P_, Qn=P_, pad="hnsw", bias=False, iters=10)
-    print(f"K1 timing (HNSW lazy-select N=2048 K=32 P={P_} Qn={P_}, median of 10, CUDA events): kernel {ks_ms!r} ms, "
-          f"plain {plains_ms!r} ms [{smi}]")
+    # 4. K1 timing by row id, at the main paths' shapes
+    timed = {}
+    for shape, N, K, P_, Qn, layout, pad, bias, R in K1_TIMED:
+        t = time_k1(device, shape, N, K, P_, Qn, layout, pad, bias, R, iters=10 if N * K > 200_000 else 20)
+        timed[shape] = t
+        print(f"K1 timing {shape} (by id, N={N} K={K} P={P_} Qn={Qn}, table of {R} rows, L2 flushed, median of "
+              f"CUDA events) [{smi}]: kernel {t['ms']!r} ms, bound {t['bound_ms']!r} ms ({t['bound_by']}, "
+              f"{t['bytes']} bytes), share of bound {t['share']!r}; plain {t['plain_ms']!r} ms, "
+              f"searchsorted composite {t['composite_ms']!r} ms")
+    k_ms = timed["predict"]["ms"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 5. full-width predict
     t0 = time.perf_counter()
@@ -963,13 +1171,7 @@ def main():
         t0 = time.perf_counter()
         xlm.predict(X, **kw)
         best = min(best, time.perf_counter() - t0)
-    ids, vals = prepare_queries_padded(X[:BATCH], cap=Q_NNZ)
-    ids_d, vals_d = torch.from_numpy(ids).to(device), torch.from_numpy(vals).to(device)
-    pp_names = ("l3-hinge",) * compiled.depth
-    has_dense = compiled.uses_dense_queries(BATCH, Q_NNZ)
-    run = lambda: compiled.predict_padded(
-        ids_d, vals_d, beam_size=BEAM, only_topk=TOPK, pp_names=pp_names, has_dense=has_dense
-    )
+    run = batch_runner(compiled, X, device)
     run()
     iters = 20
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1015,11 +1217,14 @@ def main():
     run_ann_pairwise(base, device, smi)
 
     print(f"gpu: {smi}")
+    pred = timed["predict"]
     kernels = [{
         "name": "intersect_scores", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
-        "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": plain_ms,
-        "batch1_ms": k1_ms, "batch1_plain_ms": plain1_ms, "hnsw_ms": kh_ms, "hnsw_plain_ms": plainh_ms,
-        "hnsw_select_ms": ks_ms, "hnsw_select_plain_ms": plains_ms,
+        "launches": launches, "max_abs_err": max_err, "ms": pred["ms"], "plain_ms": pred["plain_ms"],
+        "bound_ms": pred["bound_ms"], "bound_by": pred["bound_by"], "library_ms": None,
+        "share": pred["share"], "composite_ms": pred["composite_ms"],
+        "shapes": {shape: {k: t[k] for k in ("N", "K", "P", "Qn", "ms", "plain_ms", "composite_ms", "bound_ms", "bound_by", "share")}
+                   for shape, t in timed.items()},
         "launches_by_path": {
             "predict": launches, **{f"wire_{dt}": n for dt, n in wire_launches.items()},
             "realtime": realtime_launches, "compiled_eager": eager_launches, "compiled_lazy": lazy_launches,

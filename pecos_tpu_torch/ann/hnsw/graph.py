@@ -42,7 +42,7 @@ import numpy as np
 import scipy.sparse as smat
 import torch
 
-from pecos_tpu_torch.ops.intersect import intersect_scores, split_packed
+from pecos_tpu_torch.ops.intersect import intersect_scores_rows, split_packed
 from pecos_tpu_torch.utils.torch_util import DeviceLike, resolve_device
 
 PAD = -1
@@ -158,10 +158,10 @@ def pairwise_dist(Q: torch.Tensor, X: torch.Tensor, metric: str) -> torch.Tensor
 
 def _sparse_gather_dots(Q: SparseBlock, feats: SparseFeats, ids: torch.Tensor) -> torch.Tensor:
     """<q_b, x_{ids[b,k]}> for sparse q and x: (B, K) float32 through K1
-    (the CUDA kernel on a GPU, its plain version on the CPU).  The pads are
-    SPARSE_PAD_ID on both sides with value 0, so pad matches add nothing."""
-    w = feats.packed[ids.clamp(0, feats.packed.shape[0] - 1)]  # (B, K, 2P)
-    return intersect_scores(Q.ids, Q.vals, w)
+    (the CUDA kernel on a GPU, its plain version on the CPU), which reads the
+    rows of ``feats.packed`` by id.  The pads are SPARSE_PAD_ID on both sides
+    with value 0, so pad matches add nothing."""
+    return intersect_scores_rows(Q.ids, Q.vals, feats.packed, ids.clamp(0, feats.packed.shape[0] - 1))
 
 
 def gather_dist(Q: Queries, feats: Feats, ids: torch.Tensor, metric: str) -> torch.Tensor:
@@ -462,31 +462,30 @@ def _select_sparse_lazy(
     """Alg-4 selection for sparse features with the candidate-candidate
     distances computed on demand: step i scores candidate i against the <= M
     rows selected so far with one K1 launch (query = candidate i's row,
-    weights = the (B, M, 2P) buffer of selected rows), E*M work instead of the
-    E^2 cross matrix.  Same selection as batch_select_neighbors on the full
-    cross matrix."""
+    weights = the selected rows of ``feats.packed`` read by id, -1 for the
+    empty slots, which score 0), E*M work instead of the E^2 cross matrix.
+    Same selection as batch_select_neighbors on the full cross matrix."""
     B, E = ids.shape
     N, P = feats.shape
     dev = ids.device
     safe = ids.clamp(0, N - 1)
     rows = feats.packed[safe]  # (B, E, 2P)
     csq = feats.sq[safe]  # (B, E)
-    buf = torch.zeros((B, M, 2 * P), dtype=torch.int32, device=dev)  # value bits 0 = 0.0
-    buf[:, :, :P] = SPARSE_PAD_ID
+    sel_rows = torch.full((B, M), -1, dtype=torch.int64, device=dev)
     buf_sq = torch.zeros((B, M), device=dev)
     slot = torch.arange(M, device=dev)[None, :]
     count = torch.zeros((B,), dtype=torch.long, device=dev)
     sel_mask = torch.zeros((B, E), dtype=torch.bool, device=dev)
     for i in range(E):
         ci, cv = split_packed(rows[:, i])
-        dots = intersect_scores(ci.contiguous(), cv.contiguous(), buf)  # (B, M)
+        dots = intersect_scores_rows(ci.contiguous(), cv.contiguous(), feats.packed, sel_rows)  # (B, M)
         ci_sq = csq[:, i]
         cross = 1.0 - dots if metric == "ip" else buf_sq + ci_sq[:, None] - 2.0 * dots
         min_sel = torch.where(slot < count[:, None], cross, INF).min(dim=1).values
         di = dists[:, i]
         ok = (ids[:, i] >= 0) & (di < INF * 0.5) & (min_sel >= di) & (count < M)
         put = (slot == count[:, None]) & ok[:, None]  # (B, M): the next free slot
-        buf = torch.where(put[:, :, None], rows[:, i, None, :], buf)
+        sel_rows = torch.where(put, safe[:, i, None], sel_rows)
         if metric != "ip":
             buf_sq = torch.where(put, ci_sq[:, None], buf_sq)
         sel_mask[:, i] = ok

@@ -1,23 +1,35 @@
 """K1: sparse-query x sparse-weight id-intersection scoring.
 
 The hot loop of XR-Linear beam-search predict: every plabel layer scores its
-beam's candidate labels with it.  It replaces the Pallas TPU kernel
+beam's candidate labels with it; the sparse HNSW search and selection score
+neighbours with it.  It replaces the Pallas TPU kernel
 ``pecos_tpu/ops/intersect.py:intersect_scores_pallas``; the CUDA source and a
 note on what bounds it on the card are in ``csrc/intersect.cu``.
 
-``intersect_scores`` chooses by the device of its tensors: CPU tensors go to
-the plain PyTorch version ``intersect_scores_reference``; CUDA tensors go to the
-CUDA kernel, or the call raises.  There is no other switch.
+Two entry points, one kernel:
+
+- ``intersect_scores_rows(qids, qvals, table, rows)`` scores candidate (n, k)
+  against row ``rows[n, k]`` of a packed table read in place (row -1 scores 0),
+  so no gathered (N, K, 2P) block is built;
+- ``intersect_scores(qids, qvals, w_packed)`` scores an already gathered
+  (N, K, 2P) block.
+
+Each chooses by the device of its tensors: CPU tensors go to the plain
+PyTorch version; CUDA tensors go to the CUDA kernel, or the call raises.
+There is no other switch.  Both count the kernel's launches in
+``intersect_scores.launches``.
 
 Numerical contract (that of ``pecos_tpu/xmc/inference.py:_intersect_scores``):
 the matched-value sum is exact (CSR ids are unique per row, so each weight slot
-matches at most one query nonzero); only the order of the final P-sum differs
-between the kernel and the plain version.
+matches at most one query nonzero); only the order of the final P-sum (and of
+a repeated query id's values) differs between the kernel and the plain
+version.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,6 +38,20 @@ from . import _build
 # query nonzeros compared per step of the plain version: an unchunked
 # (N, K, P, Qn) compare block is ~2.7e9 elements at the predict path's shape
 _REF_QUERY_CHUNK = 64
+
+# the kernel's launch geometry (csrc/intersect.cu: kThreads)
+_THREADS = 256
+# query nonzeros hashed into shared memory at a time, into a table of 8x as
+# many slots (a load of 1/8 keeps most probes to one read), 8 bytes a slot:
+# 32 KB at most, with the block's row offsets (8 bytes each, at most
+# _MAX_PER_BLOCK) under the 48 KB a launch may take without cudaFuncSetAttribute
+_MAX_CHUNK = 512
+_SLOTS_PER_ENTRY = 8
+_MIN_SLOTS = 64
+_MAX_PER_BLOCK = 512
+# blocks a launch aims for before it spreads one query's candidates thinner:
+# one wave of 8 blocks on each of an H100's 132 SMs
+_TARGET_BLOCKS = 8 * 132
 
 
 def split_packed(w_packed: torch.Tensor):
@@ -56,13 +82,62 @@ def intersect_scores_reference(
     return out
 
 
-def _check_cuda_args(qids, qvals, w_packed):
+def intersect_scores_rows_reference(
+    qids: torch.Tensor,  # (N, Qn) int32
+    qvals: torch.Tensor,  # (N, Qn) float32
+    table: torch.Tensor,  # (R, 2P) int32 [ids | float bits]
+    rows: torch.Tensor,  # (N, K) int64 in [-1, R); -1 scores 0
+    bias_id: Optional[int] = None,
+    bias_val: float = 0.0,
+) -> torch.Tensor:
+    """Plain PyTorch K1 by row id: the rows gathered (a -1 row as all zeros),
+    then ``intersect_scores_reference``.  Returns (N, K) float32."""
+    w = table[rows.clamp(min=0)]
+    w = torch.where((rows >= 0)[..., None], w, 0)
+    return intersect_scores_reference(qids, qvals, w, bias_id, bias_val)
+
+
+class LaunchPlan(NamedTuple):
+    """How one K1 launch covers its work (csrc/intersect.cu)."""
+
+    slots: int  # hash table slots, a power of two >= 8 x chunk
+    chunk: int  # query nonzeros staged per table
+    chunks: int  # tables built per block: ceil(Qn / chunk)
+    lanes: int  # lanes per candidate row, a power of two <= 32
+    per_block: int  # candidates a block
+    blocks_per_row: int  # blocks of one query
+    grid: int  # blocks: N x blocks_per_row
+    shared_bytes: int  # dynamic shared memory a block: the table, then the row offsets
+
+
+def _launch_plan(N: int, K: int, P: int, Qn: int) -> LaunchPlan:
+    """The launch geometry of K1 for N queries of Qn nonzeros, K candidates
+    each, rows of P slots.  One block stages one query's nonzeros in a hash
+    table (chunks of at most _MAX_CHUNK) and scores a run of its candidates;
+    a group of ``lanes`` lanes reads one candidate's row, two slots a lane,
+    so rows of 64 or more slots take a warp each.  A query's K candidates
+    are split over as many blocks as bring the launch near _TARGET_BLOCKS,
+    never fewer than one candidate a group and never more than
+    _MAX_PER_BLOCK a block, so a single query still covers K / (threads /
+    lanes) blocks."""
+    chunk = max(1, min(Qn, _MAX_CHUNK))
+    chunks = max(1, -(-Qn // chunk))
+    slots = max(_MIN_SLOTS, 1 << math.ceil(math.log2(_SLOTS_PER_ENTRY * chunk)))
+    lanes = min(32, 1 << math.ceil(math.log2(max(1, -(-P // 2)))))
+    groups = _THREADS // lanes
+    blocks_per_row = min(-(-K // groups), max(-(-_TARGET_BLOCKS // max(N, 1)), -(-K // _MAX_PER_BLOCK)))
+    blocks_per_row = max(1, blocks_per_row)
+    per_block = max(1, -(-K // blocks_per_row))
+    blocks_per_row = max(1, -(-K // per_block))
+    grid = N * blocks_per_row if N and K else 0
+    return LaunchPlan(slots, chunk, chunks, lanes, per_block, blocks_per_row, grid, 8 * (slots + per_block))
+
+
+def _check_tensors(qids, qvals, *named):
+    """Device, dtype, rank and contiguity of the kernel's tensor arguments:
+    qids, qvals and each (name, tensor, dtype, ndim) of ``named``."""
     dev = qids.device
-    for name, t, dtype, ndim in (
-        ("qids", qids, torch.int32, 2),
-        ("qvals", qvals, torch.float32, 2),
-        ("w_packed", w_packed, torch.int32, 3),
-    ):
+    for name, t, dtype, ndim in (("qids", qids, torch.int32, 2), ("qvals", qvals, torch.float32, 2), *named):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, qids on {dev}")
         if t.dtype != dtype:
@@ -74,11 +149,61 @@ def _check_cuda_args(qids, qvals, w_packed):
     N, Qn = qids.shape
     if qvals.shape != (N, Qn):
         raise ValueError(f"qvals shape {tuple(qvals.shape)} != qids shape {(N, Qn)}")
+    return N, Qn
+
+
+def _check_plan(N, K, P, Qn):
+    plan = _launch_plan(N, K, P, Qn)
+    if plan.grid > 2**31 - 1:
+        raise ValueError(f"grid too large for N={N}, K={K}")
+
+
+def _check_cuda_args(qids, qvals, w_packed):
+    N, Qn = _check_tensors(qids, qvals, ("w_packed", w_packed, torch.int32, 3))
     if w_packed.shape[0] != N or w_packed.shape[2] % 2:
         raise ValueError(f"w_packed must be (N={N}, K, 2P), got {tuple(w_packed.shape)}")
-    K = w_packed.shape[1]
-    if N > 2**31 - 1 or -(-K // 32) > 65535:
-        raise ValueError(f"grid too large for N={N}, K={K}")
+    _check_plan(N, w_packed.shape[1], w_packed.shape[2] // 2, Qn)
+
+
+def _check_rows_args(qids, qvals, table, rows):
+    N, Qn = _check_tensors(qids, qvals, ("table", table, torch.int32, 2), ("rows", rows, torch.int64, 2))
+    if table.shape[1] % 2:
+        raise ValueError(f"table must be (R, 2P), got {tuple(table.shape)}")
+    if table.shape[0] >= 2**31:
+        raise ValueError(f"table has {table.shape[0]} rows; the kernel takes fewer than 2**31")
+    if rows.shape[0] != N:
+        raise ValueError(f"rows must be (N={N}, K), got {tuple(rows.shape)}")
+    _check_plan(N, rows.shape[1], table.shape[1] // 2, Qn)
+
+
+def _launch(qids, qvals, table, rows, K, bias_id, bias_val) -> torch.Tensor:
+    """One K1 launch on the tensors' card; ``rows`` None reads row n*K + k."""
+    if table.data_ptr() % 8:
+        raise ValueError("table must start on an 8-byte boundary (the kernel reads slot pairs)")
+    lib = _build.load_library()
+    N, Qn = qids.shape
+    R, P = table.shape[0], table.shape[1] // 2
+    plan = _launch_plan(N, K, P, Qn)
+    out = torch.empty((N, K), dtype=torch.float32, device=qids.device)
+    with torch.cuda.device(qids.device):
+        stream = torch.cuda.current_stream(qids.device).cuda_stream
+        err = lib.pecos_intersect_scores(
+            qids.data_ptr(), qvals.data_ptr(), table.data_ptr(), R,
+            None if rows is None else rows.data_ptr(), out.data_ptr(),
+            K, P, Qn, plan.chunk, plan.slots.bit_length() - 1, plan.lanes, plan.per_block,
+            plan.blocks_per_row, plan.grid, plan.shared_bytes,
+            int(bias_id is not None), int(bias_id) if bias_id is not None else 0, float(bias_val), stream,
+        )
+    if err != 0:
+        msg = lib.pecos_cuda_error_string(err).decode()
+        raise RuntimeError(f"intersect_scores kernel launch failed: {msg} (cudaError {err})")
+    intersect_scores.launches += 1
+    return out
+
+
+def _require_cpu_or_cuda(qids):
+    if qids.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"intersect_scores runs on cpu or cuda tensors, got {qids.device}")
 
 
 def intersect_scores(
@@ -88,30 +213,36 @@ def intersect_scores(
     bias_id: Optional[int] = None,
     bias_val: float = 0.0,
 ) -> torch.Tensor:
-    """K1 on the tensors' device: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (raises on anything the kernel does not take).
-    ``intersect_scores.launches`` counts the kernel's launches."""
+    """K1 over a gathered (N, K, 2P) block on the tensors' device: the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors (raises on
+    anything the kernel does not take).  ``intersect_scores.launches`` counts
+    the kernel's launches, by either entry point."""
+    _require_cpu_or_cuda(qids)
     if qids.device.type == "cpu":
         return intersect_scores_reference(qids, qvals, w_packed, bias_id, bias_val)
-    if qids.device.type != "cuda":
-        raise ValueError(f"intersect_scores runs on cpu or cuda tensors, got {qids.device}")
     _check_cuda_args(qids, qvals, w_packed)
-    lib = _build.load_library()
-    N, Qn = qids.shape
-    K, P = w_packed.shape[1], w_packed.shape[2] // 2
-    out = torch.empty((N, K), dtype=torch.float32, device=qids.device)
-    with torch.cuda.device(qids.device):
-        stream = torch.cuda.current_stream(qids.device).cuda_stream
-        err = lib.pecos_intersect_scores(
-            qids.data_ptr(), qvals.data_ptr(), w_packed.data_ptr(), out.data_ptr(),
-            N, K, P, Qn, int(bias_id is not None),
-            int(bias_id) if bias_id is not None else 0, float(bias_val), stream,
-        )
-    if err != 0:
-        msg = lib.pecos_cuda_error_string(err).decode()
-        raise RuntimeError(f"intersect_scores kernel launch failed: {msg} (cudaError {err})")
-    intersect_scores.launches += 1
-    return out
+    N, K, P2 = w_packed.shape
+    return _launch(qids, qvals, w_packed.view(N * K, P2), None, K, bias_id, bias_val)
 
 
 intersect_scores.launches = 0
+
+
+def intersect_scores_rows(
+    qids: torch.Tensor,
+    qvals: torch.Tensor,
+    table: torch.Tensor,
+    rows: torch.Tensor,
+    bias_id: Optional[int] = None,
+    bias_val: float = 0.0,
+) -> torch.Tensor:
+    """K1 by row id on the tensors' device: candidate (n, k) is row
+    ``rows[n, k]`` of ``table`` (R, 2P), read in place; a row of -1 scores 0.
+    The plain version for CPU tensors, the CUDA kernel for CUDA tensors
+    (raises on anything the kernel does not take).  The kernel launch counts
+    in ``intersect_scores.launches``."""
+    _require_cpu_or_cuda(qids)
+    if qids.device.type == "cpu":
+        return intersect_scores_rows_reference(qids, qvals, table, rows, bias_id, bias_val)
+    _check_rows_args(qids, qvals, table, rows)
+    return _launch(qids, qvals, table, rows, rows.shape[1], bias_id, bias_val)

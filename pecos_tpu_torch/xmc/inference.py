@@ -7,7 +7,7 @@ over padded children tables, run eagerly on one torch device.
   ``dense`` — W as a dense (D+1, L) matrix, for the small upper levels; or
   ``plabel`` — every label's pruned sparse weight vector padded to P slots and
   packed as [ids | float bits], plus ``parent_packed``, the same rows grouped
-  by parent so one beam parent's children are one gathered row.
+  by parent so one beam parent's children are contiguous rows.
 - One beam step expands the beam's parents into candidates, scores them,
   applies the post-processor's transform and combiner, masks invalid
   candidates and keeps the top k.
@@ -36,7 +36,7 @@ import numpy as np
 import scipy.sparse as smat
 import torch
 
-from pecos_tpu_torch.ops.intersect import intersect_scores, split_packed
+from pecos_tpu_torch.ops.intersect import intersect_scores_rows, split_packed
 from pecos_tpu_torch.utils import smat_util
 from pecos_tpu_torch.utils.cluster_util import padded_children
 from pecos_tpu_torch.utils.torch_util import DeviceLike, resolve_device
@@ -62,8 +62,8 @@ class DeviceLayer:
     W: Optional[torch.Tensor] = None  # dense: (D+1, L) float32
     packed: Optional[torch.Tensor] = None  # plabel: (L, 2P) int32 [ids | float bits]
     # plabel: (n_parents, max_children, 2P) int32 — each parent's children's
-    # packed rows in children-table order (zeros for -1 children), so scoring a
-    # beam gathers one row per parent instead of one per candidate
+    # packed rows in children-table order (zeros for -1 children), so a beam
+    # parent's candidates are max_children contiguous rows for K1 to read
     parent_packed: Optional[torch.Tensor] = None
 
     @property
@@ -414,8 +414,8 @@ def score_candidates_sparse(
     bias_val: float = 0.0,
 ) -> torch.Tensor:
     """Sparse-query x sparse-weight candidate scoring (K1) from the per-label
-    packed rows: one gathered (2P) row per candidate."""
-    return intersect_scores(qids, qvals, layer.packed[cand], bias_id, bias_val)
+    packed rows, read by candidate id."""
+    return intersect_scores_rows(qids, qvals, layer.packed, cand, bias_id, bias_val)
 
 
 def score_candidates_sparse_parents(
@@ -426,12 +426,14 @@ def score_candidates_sparse_parents(
     bias_id: Optional[int] = None,
     bias_val: float = 0.0,
 ) -> torch.Tensor:
-    """K1 from the parent-packed layout: one gathered row per beam parent
-    covers all its children.  Returns (N, Bm*maxc) raw scores aligned with
-    ``children[parents].reshape(N, -1)``."""
+    """K1 from the parent-packed layout: a beam parent's children are maxc
+    contiguous rows, read by id.  Returns (N, Bm*maxc) raw scores aligned
+    with ``children[parents].reshape(N, -1)``."""
     N = parents.shape[0]
-    w = layer.parent_packed[parents].reshape(N, -1, layer.parent_packed.shape[2])
-    return intersect_scores(qids, qvals, w, bias_id, bias_val)
+    maxc = layer.parent_packed.shape[1]
+    table = layer.parent_packed.view(-1, layer.parent_packed.shape[2])
+    rows = torch.add(torch.arange(maxc, device=parents.device), parents[:, :, None], alpha=maxc).reshape(N, -1)
+    return intersect_scores_rows(qids, qvals, table, rows, bias_id, bias_val)
 
 
 def beam_step(

@@ -139,3 +139,178 @@ def test_kernel_argument_checks(mutate, match):
     args = mutate(torch.from_numpy(qids), torch.from_numpy(qvals), torch.from_numpy(packed(wi, wv)))
     with pytest.raises(ValueError, match=match):
         ops._check_cuda_args(*args)
+
+
+# ---- K1 by row id: intersect_scores_rows and its launch plan ----
+
+from pecos_tpu_torch.ops.intersect import (  # noqa: E402
+    _launch_plan,
+    intersect_scores_rows,
+    intersect_scores_rows_reference,
+)
+
+HNSW_PAD = 1 << 30
+
+
+def make_rows_case(kind, seed):
+    """(qids, qvals, table, rows, bias_id) for one by-id case: rows name table
+    rows (-1 for none), as the port's callers pass them."""
+    rng = np.random.default_rng(seed)
+    N, K, P, Qn, D = 8, 16, 16, 32, 200
+    qids, qvals, wi, wv = make_case(N, 1, P, Qn, D, seed)  # the queries; weights below
+    R = 60
+    _, _, wi, wv = make_case(R, 1, P, 8, D, seed + 1)
+    table = packed(wi[:, 0], wv[:, 0])
+    bias_id = D
+    if kind == "minus-one":
+        rows = rng.integers(0, R, size=(N, K))
+        rows[rng.uniform(size=(N, K)) < 0.25] = -1
+    elif kind == "parent-layout":
+        # the table as parent_packed (n_parents, maxc, 2P) with zero rows for
+        # missing children; a beam of 4 parents, maxc = 4
+        maxc, n_parents = 4, R // 4
+        table[rng.uniform(size=R) < 0.2] = 0
+        parents = rng.integers(0, n_parents, size=(N, 4))
+        rows = (parents[:, :, None] * maxc + np.arange(maxc)).reshape(N, -1)
+    elif kind == "hnsw-pads":
+        # SPARSE_PAD_ID (value 0) pads on both sides, no bias
+        qids[qvals == 0] = HNSW_PAD
+        ids, vals = table[:, :P].copy(), table[:, P:].view(np.float32).copy()
+        ids[vals == 0] = HNSW_PAD
+        table = packed(ids, vals)
+        rows = rng.integers(0, R, size=(N, K))
+        bias_id = None
+    elif kind == "duplicates":
+        # repeated nonzero ids in a query row add up, as in the reference
+        qids[:, 1::2] = qids[:, 0::2]
+        qids, order = np.sort(qids, axis=1), np.argsort(qids, axis=1, kind="stable")
+        qvals = np.take_along_axis(qvals, order, axis=1)
+        rows = rng.integers(0, R, size=(N, K))
+    else:
+        raise ValueError(kind)
+    return qids, qvals, table, rows.astype(np.int64), bias_id
+
+
+def gathered(table, rows):
+    """(wi, wv) of the rows, a -1 row all zeros."""
+    w = np.where((rows >= 0)[..., None], table[np.clip(rows, 0, None)], 0).astype(np.int32)
+    P = table.shape[1] // 2
+    return w[..., :P], w[..., P:].view(np.float32)
+
+
+ROW_KINDS = ["minus-one", "parent-layout", "hnsw-pads", "duplicates"]
+
+
+@pytest.mark.parametrize("kind", ROW_KINDS)
+def test_rows_reference_matches_jax(kind):
+    """The plain by-id version against JAX's _intersect_scores on the gathered rows."""
+    qids, qvals, table, rows, bias_id = make_rows_case(kind, seed=len(kind))
+    bias_val = 1.0 if bias_id is not None else 0.0
+    wi, wv = gathered(table, rows)
+    want = jax_scores(qids, qvals, wi, wv, bias_id, bias_val)
+    before = intersect_scores.launches
+    got = intersect_scores_rows(
+        torch.from_numpy(qids), torch.from_numpy(qvals), torch.from_numpy(table), torch.from_numpy(rows),
+        bias_id, bias_val,
+    ).numpy()
+    assert intersect_scores.launches == before  # CPU tensors: the plain version
+    assert got.shape == rows.shape and got.dtype == np.float32
+    assert (got[rows < 0] == 0).all()
+    atol = 1e-6 * abs_scale(qids, qvals, wi, wv, bias_id, bias_val)
+    np.testing.assert_array_less(np.abs(got - want), 1e-5 * np.abs(want) + atol + 1e-30)
+
+
+def test_rows_reference_equals_block_form_bit_for_bit():
+    """By id or through the gathered block, the plain version gives the same bits."""
+    qids, qvals, table, rows, _ = make_rows_case("parent-layout", seed=3)
+    wi, wv = gathered(table, rows)
+    q, v = torch.from_numpy(qids), torch.from_numpy(qvals)
+    by_id = intersect_scores_rows_reference(q, v, torch.from_numpy(table), torch.from_numpy(rows), 200, 1.0)
+    block = intersect_scores_reference(q, v, torch.from_numpy(packed(wi, wv)), 200, 1.0)
+    assert torch.equal(by_id, block)
+
+
+def test_pallas_kernel_interpret_on_gathered_rows():
+    """The JAX package's Pallas kernel, in interpret mode, on a block gathered
+    by parent-layout row ids, against the port's by-id plain version."""
+    qids, qvals, table, rows, bias_id = make_rows_case("parent-layout", seed=5)
+    wi, wv = gathered(table, rows)
+    N, K, P = wi.shape
+    assert supports_shapes(N, K, P, qids.shape[1])
+    want = np.asarray(
+        intersect_scores_pallas(
+            jnp.asarray(qids), jnp.asarray(qvals), jnp.asarray(wi), jnp.asarray(wv),
+            bias_id=bias_id, bias_val=1.0, interpret=True,
+        )
+    )
+    got = intersect_scores_rows(
+        torch.from_numpy(qids), torch.from_numpy(qvals), torch.from_numpy(table), torch.from_numpy(rows), bias_id, 1.0
+    ).numpy()
+    atol = 1e-6 * abs_scale(qids, qvals, wi, wv, bias_id, 1.0)
+    np.testing.assert_array_less(np.abs(got - want), 1e-5 * np.abs(want) + atol + 1e-30)
+
+
+# chip_smoke.py's K1 shapes (N, K, P, Qn), queries above one table's
+# capacity, odd P, more candidates than a block takes, and an empty batch
+PLAN_SHAPES = [
+    (1024, 160, 64, 256), (3, 37, 8, 5), (8, 37, 64, 4096), (64, 160, 64, 256), (1, 160, 64, 256),
+    (2048, 256, 96, 96), (2048, 32, 96, 96), (4, 40, 64, 5000), (16, 32, 16, 64), (5, 7, 13, 600),
+    (2, 5000, 64, 256), (0, 160, 64, 256),
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_launch_plan(shape):
+    N, K, P, Qn = shape
+    plan = _launch_plan(N, K, P, Qn)
+    assert plan.slots & (plan.slots - 1) == 0 and plan.slots >= 2 * plan.chunk
+    assert plan.chunks * plan.chunk >= Qn and (plan.chunks - 1) * plan.chunk < max(Qn, 1)
+    assert plan.shared_bytes == 8 * (plan.slots + plan.per_block) <= 48 * 1024 <= 232_448
+    assert plan.lanes & (plan.lanes - 1) == 0 and 1 <= plan.lanes <= 32
+    assert plan.lanes == 32 or 2 * plan.lanes >= P  # about two slots a lane, a warp from P = 64
+    # every candidate in exactly one block, and no block empty
+    assert plan.per_block * plan.blocks_per_row >= K > plan.per_block * (plan.blocks_per_row - 1)
+    assert plan.grid == N * plan.blocks_per_row <= 2**31 - 1
+    if (N, K) == (1, 160):
+        assert plan.grid >= 16  # a batch of one spreads over many SMs
+    if Qn > 512:
+        assert plan.chunks > 1
+
+
+def test_rows_other_devices_raise():
+    q = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    v = torch.zeros((2, 4), dtype=torch.float32, device="meta")
+    t = torch.zeros((5, 8), dtype=torch.int32, device="meta")
+    r = torch.zeros((2, 3), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        intersect_scores_rows(q, v, t, r)
+
+
+@pytest.mark.parametrize(
+    "mutate, match",
+    [
+        (lambda q, v, t, r: (q, v, t, r.int()), "rows must be torch.int64"),
+        (lambda q, v, t, r: (q, v, t.float(), r), "table must be torch.int32"),
+        (lambda q, v, t, r: (q, v, t[None], r), "table must have 2 dims"),
+        (lambda q, v, t, r: (q, v, t[:, :-1].contiguous(), r), r"table must be \(R, 2P\)"),
+        (lambda q, v, t, r: (q, v, t.t().contiguous().t(), r), "table must be contiguous"),
+        (lambda q, v, t, r: (q, v, t, r[:1]), r"rows must be \(N=2, K\)"),
+        (lambda q, v, t, r: (q, v, t, r.to("meta")), "rows is on meta"),
+        (lambda q, v, t, r: (q, v[:1], t, r), "qvals shape"),
+    ],
+)
+def test_rows_argument_checks(mutate, match):
+    """What the by-id wrapper checks before it hands pointers to the kernel."""
+    q, v = torch.zeros((2, 4), dtype=torch.int32), torch.zeros((2, 4))
+    t, r = torch.zeros((5, 8), dtype=torch.int32), torch.zeros((2, 3), dtype=torch.int64)
+    with pytest.raises(ValueError, match=match):
+        ops._check_rows_args(*mutate(q, v, t, r))
+
+
+def test_rows_table_of_2_31_rows_raises():
+    meta = dict(device="meta")
+    q, v = torch.zeros((2, 4), dtype=torch.int32, **meta), torch.zeros((2, 4), **meta)
+    t = torch.empty((2**31, 8), dtype=torch.int32, **meta)
+    r = torch.zeros((2, 3), dtype=torch.int64, **meta)
+    with pytest.raises(ValueError, match="fewer than 2"):
+        ops._check_rows_args(q, v, t, r)
