@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch + CUDA port (pecos_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                      # phases 1-11, the result lines last
+    python3 chip_smoke.py                      # phases 1-12, the result lines last
     python3 chip_smoke.py --profile-ann        # phases 1-2, then torch.profiler over phase 11's dense build and sparse predict
     python3 chip_smoke.py --profile-predict    # phases 1-2, then torch.profiler over phase 6's batch loop and one predict
 
@@ -34,7 +34,8 @@ non-zero:
              agreement with the float32 run, QPS of float32/float16/uint8 in turns.
 8. realtime — a batch-1 RealtimeSession: 256 single-query calls against
              phase 5's rows, K1 launches per call, p50/p99 call latency and
-             the on-device latency of one beam walk.
+             the on-device latency of one beam walk, which must not exceed
+             the p50 (each timed walk queued behind a sleep of the card).
 9. compiled — save_compiled_layers of the phase-5 model to a temporary
              directory; load_compiled_layers eager (labels of 1,024 queries
              equal phase 5's) and lazy with every layer streamed (agreement
@@ -47,8 +48,9 @@ non-zero:
              the same run on the CPU; (c) the repo's matched-recall training
              benchmark at full width (scripts/xmc_bench.py: 20,000 x 4,096
              train, 8,192 labels, 16-way tree, leaves of 100): PIFA and the
-             clustering on the card, XLinearModel.train twice, then 4,000
-             test queries predicted through K1 (beam 10, top 10), P@1 >= 0.80.
+             clustering on the card (twice: one seed must give one chain),
+             XLinearModel.train twice, then 4,000 test queries predicted
+             through K1 (beam 10, top 10), P@1 >= 0.80.
 11. ann    — the repo's ANN geometries (benchmarks/README.md:42-133): (a)
              synthetic SIFT, 100,000 x 128, l2, M=32, efC=100, built on the
              card with the defaults (scan mode, bfloat16 search copy), exact
@@ -56,11 +58,21 @@ non-zero:
              10,000 queries, QPS at efS 50/100/200, 256 queries searched on
              the card and on the CPU over the graph (>= 99% equal ids), saved,
              loaded, searched again; (b) PQ4 (64 subspaces) grafted onto that
-             graph, packed and unpacked ids equal on 1,000 queries, recall@10
+             graph twice (one seed must give the same codes and codebooks),
+             packed and unpacked ids equal on 1,000 queries, recall@10
              >= 0.95 at efS=200 (num_rerank 2 x efS); (c) the clustered sparse
              corpus (100,000 x 500,000 CSR, ip) built and searched through K1,
              tie-aware recall@10 >= 0.99 at efS=100; (d) PairwiseANN on (a)'s
              base with a random Y, the card against the CPU.
+12. multi-device — a mesh of 4 shards over the cards, or over the one card
+             four times (pecos_tpu_torch.parallel): (a) the mesh's dry run;
+             (b) phase 5's model and queries through XLinearModel.predict with
+             mesh= at lp=4: K1 once per plabel level, shard and batch, labels
+             >= 99.5% equal to phase 5's; (c) the dense engines
+             (data-parallel and label-sharded) on phase 10c's model and dense
+             test queries against its single-device predict; (d)
+             DistributedXLinearModel.train on phase 10c's data with 2 thread
+             ranks (FakeClusterComm), P@1 >= 0.80 and within 0.02 of 10c's.
 
 Every K1 launch of a phase's run is counted with the count set to 0 just
 before it.  The line before the last is a JSON object describing each kernel
@@ -192,6 +204,9 @@ ANN_PQ_MIN_RECALL = 0.95  # PQ4 recall@10 at efS=200, num_rerank 2 x efS
 ANN_CPU_CHECK, ANN_PQ_CHECK, ANN_PQ_SUBSPACES = 256, 1000, 64
 ANN_MIN_AGREE = 0.99  # (row, rank) ids equal, card against the CPU over one graph
 ANN_PAIRS, ANN_LABELS = 4096, 1024  # PairwiseANN: (query, label) pairs; labels of a random Y
+# phase 12: a mesh of 4 shards; the distributed train's thread ranks and its
+# P@1 window around the direct train's
+SHARDS, DIST_RANKS, DIST_P1_WINDOW = 4, 2, 0.02
 
 
 def check_k1(device, cases=K1_CASES):
@@ -505,8 +520,10 @@ def run_realtime(xlm, X, P5, n_plabel, smi, kw):
     p50, p99 = (float(v) for v in np.percentile(lat_ms, [50, 99]))
     on_device = sess.on_device_latency_ms(X[:1], iters=32)
     print(f"realtime [{smi}]: batch-1 call latency p50 {p50!r} ms, p99 {p99!r} ms ({N_REALTIME} calls); "
-          f"on-device {on_device!r} ms per beam walk (32 chained walks, CUDA events); "
-          f"K1 launches per call {launches // N_REALTIME}")
+          f"on-device {on_device!r} ms per beam walk (32 chained walks, each between CUDA events behind a "
+          f"sleep of the card); K1 launches per call {launches // N_REALTIME}")
+    if not on_device <= p50:
+        raise RuntimeError(f"realtime: on-device walk {on_device!r} ms > call p50 {p50!r} ms: it holds host time")
     return launches, {"p50_ms": p50, "p99_ms": p99, "on_device_ms": on_device}
 
 
@@ -709,9 +726,19 @@ def run_matched_recall(device, smi):
     X, Y, Xt, Yt = load_script("xmc_bench").make_data(**MR_DATA)
     data_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    chain = Indexer.gen(LabelEmbeddingFactory.create(Y, X, method="pifa"), device=device, **MR_INDEX)
+    feats = LabelEmbeddingFactory.create(Y, X, method="pifa")
+    chain = Indexer.gen(feats, device=device, **MR_INDEX)
     torch.cuda.synchronize()
     index_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = Indexer.gen(feats, device=device, **MR_INDEX)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    same = len(again) == len(chain) and all(a.shape == b.shape and (a != b).nnz == 0 for a, b in zip(chain, again))
+    print(f"train matched-recall F8 [{smi}]: Indexer.gen twice on the card with one seed: chains equal {same} "
+          f"(second gen {again_s!r} s)")
+    if not same:
+        raise RuntimeError("train matched-recall: one seed gave two chains on the card")
     train_s, peaks = [], []
     for _ in range(2):
         gc.collect()
@@ -754,6 +781,7 @@ def run_matched_recall(device, smi):
     return launches, {
         "index_s": index_s, "train_s": train_s, "peak_bytes": peaks, "syncs_per_solve": count.per_solve(),
         "prec": m.prec.tolist(), "recall10": float(m.recall[9]), "qps": qps,
+        "model": model, "chain": chain, "data": (X, Y, Xt, Yt),
     }
 
 
@@ -899,6 +927,12 @@ def run_ann_pq(model, queries, true_ids, smi):
         raise RuntimeError(f"ann pq4: packed ids differ from unpacked in {int((ids_un != ids_pk).sum())} places")
     print(f"ann pq4 [{smi}]: from_hnsw S={ANN_PQ_SUBSPACES} in {pq_s!r} s; packed and unpacked ids equal on "
           f"{ANN_PQ_CHECK} queries (efS=100, num_rerank=200)")
+    again = HNSWProductQuantizer4Bits.from_hnsw(model, num_subspaces=ANN_PQ_SUBSPACES).pq
+    differ = int((again.codes != pq.pq.codes).sum())
+    print(f"ann pq4 F8 [{smi}]: train_pq4 twice on the card with one seed: {differ} of {pq.pq.codes.size} codes "
+          f"differ, codebooks equal {np.array_equal(again.codebooks, pq.pq.codebooks)}")
+    if differ or not np.array_equal(again.codebooks, pq.pq.codebooks):
+        raise RuntimeError("ann pq4: one seed gave two quantizers on the card")
     numbers = {"train_s": pq_s}
     for efS in ANN_PQ_EFS:
         (ids, dists), secs = best_time(lambda: pq.predict(queries, efS=efS, topk=ANN_TOPK, num_rerank=2 * efS))
@@ -995,6 +1029,146 @@ def run_ann_sparse(device, smi):
     if numbers["efS100"]["recall"] < ANN_MIN_RECALL:
         raise RuntimeError(f"ann sparse: recall@10 {numbers['efS100']['recall']!r} < {ANN_MIN_RECALL} at efS=100")
     return build_launches, predict_launches, numbers
+
+
+def mesh_devices(n=SHARDS):
+    """The first n cards, or the one card n times: a mesh of n shards on what the machine has."""
+    import torch
+
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return cards[:n] if len(cards) >= n else [cards[0]] * n
+
+
+def run_dryrun(smi):
+    """Phase 12a: the mesh's dry run on SHARDS shards."""
+    from pecos_tpu_torch.parallel.dryrun import dryrun
+    from pecos_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    out = dryrun(make_mesh(devices=mesh_devices()))
+    print(f"multi-device dryrun [{smi}]: {out['mesh']} in {time.perf_counter() - t0!r} s")
+
+
+def run_sharded_predict(xlm, X, P5, n_plabel, smi, kw):
+    """Phase 12b: phase 5's model and queries through the label-sharded
+    sparse engine at lp=SHARDS; returns its K1 launches."""
+    import torch
+
+    from pecos_tpu_torch.ops.intersect import intersect_scores
+    from pecos_tpu_torch.parallel.mesh import make_mesh, mesh_layers
+
+    mesh = make_mesh(SHARDS, dp=1, devices=mesh_devices())
+    compiled = xlm.model._get_compiled()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xlm.predict(X[:BATCH], mesh=mesh, **kw)  # lays the layers out on the mesh once, and warms
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    intersect_scores.launches = 0
+    P = xlm.predict(X, mesh=mesh, **kw)
+    launches = intersect_scores.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = n_plabel * SHARDS * mesh.shape["dp"] * -(-N_QUERIES // BATCH)
+    if launches != want:
+        raise RuntimeError(f"sharded predict: K1 launched {launches} times, expected {want} (plabel levels x shards x batches)")
+    if P.shape != (N_QUERIES, L):
+        raise RuntimeError(f"sharded predict: prediction shape {P.shape}")
+    labels, scores = ranked(P, TOPK)
+    want_labels, want_scores = ranked(P5, TOPK)
+    check_agreement(labels, scores, want_labels, want_scores, f"sharded predict [{smi}]: (row, rank) labels equal to phase 5's")
+    same = labels == want_labels
+    rel = float((np.abs(scores[same] - want_scores[same]) / np.maximum(np.abs(want_scores[same]), 1e-30)).max())
+    shard_bytes = [sum(l.nbytes for l in layers) for layers in mesh_layers(compiled, mesh, "parents")[0]]
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        xlm.predict(X, mesh=mesh, **kw)
+        best = min(best, time.perf_counter() - t0)
+    print(f"sharded predict [{smi}]: mesh {mesh.shape} on {sorted({str(d) for d in mesh.devices[0]})}, layers laid out "
+          f"and warmed in {layout_s!r} s; {N_QUERIES} queries: K1 launches {launches} ({n_plabel} plabel levels x "
+          f"{SHARDS} shards x {-(-N_QUERIES // BATCH)} batches); largest score rel diff from phase 5 {rel!r}")
+    print(f"sharded predict [{smi}]: end-to-end {N_QUERIES / best!r} QPS (best of 3, {best!r} s); largest shard "
+          f"{max(shard_bytes)} bytes (single-device layers {sum(l.nbytes for l in compiled.layers)} bytes); peak device "
+          f"memory {peak} bytes, {peak - base} above the start")
+    return launches
+
+
+def run_dense_engines(model, Xt, smi):
+    """Phase 12c: the data-parallel and the label-sharded dense engines on
+    the matched-recall model, against its single-device predict of the same
+    dense queries."""
+    import torch
+
+    from pecos_tpu_torch.parallel.mesh import make_mesh, shard_chain_predict, shard_chain_predict_labels
+
+    mesh = make_mesh(devices=mesh_devices())
+    compiled = model.model._get_compiled()
+    Xd = Xt.toarray()
+    kw = dict(beam_size=MR_BEAM, only_topk=MR_TOPK)
+    want_labels, want_scores = ranked(model.predict(Xd, **kw), MR_TOPK)
+    for name, fn in (("shard_chain_predict", shard_chain_predict), ("shard_chain_predict_labels", shard_chain_predict_labels)):
+        fn(mesh, compiled, Xd[: 8 * mesh.size], **kw)  # lays the layers out, and warms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels, vals = fn(mesh, compiled, Xd, **kw)
+        labels, vals = labels.cpu().numpy(), vals.cpu().numpy()
+        secs = time.perf_counter() - t0
+        rows = int((labels == want_labels).all(axis=1).sum())
+        check_agreement(labels, vals, want_labels, want_scores, f"{name} [{smi}]: mesh {mesh.shape}, {Xd.shape[0]} dense "
+                        f"queries in {secs!r} s, rows equal to the single-device predict {rows} of {Xd.shape[0]}; (row, rank) labels equal")
+
+
+def run_dist_train(numbers, smi, device):
+    """Phase 12d: DistributedXLinearModel.train on phase 10c's data, DIST_RANKS
+    FakeClusterComm ranks as threads on the card; P@1 held to 10c's."""
+    import threading
+    import traceback
+
+    import torch
+
+    from pecos_tpu_torch.distributed.xmc import DistClustering
+    from pecos_tpu_torch.distributed.xmc.xlinear import DistributedXLinearModel
+    from pecos_tpu_torch.parallel.comm import FakeClusterComm
+    from pecos_tpu_torch.utils import smat_util
+
+    X, Y, Xt, Yt = numbers["data"]
+    cluster = FakeClusterComm(DIST_RANKS)
+    results, errors = [None] * DIST_RANKS, []
+
+    def rank(r):
+        try:
+            comm = cluster.rank_comm(r)
+            dist = DistClustering.dist_get_cluster_chain(X, Y, comm, {"indexer_params": MR_INDEX}, device=device)
+            results[r] = (DistributedXLinearModel.train(X, Y, comm, dist_chain=dist, device=device), dist)
+        except Exception:
+            errors.append(traceback.format_exc())
+            raise
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(DIST_RANKS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads) or results[0][0] is None:
+        raise RuntimeError("distributed train: a rank failed or did not finish\n" + "\n".join(errors))
+    model, dist = results[0]
+    chain = dist.get_cluster_chain()
+    direct = numbers["chain"]
+    same_chain = len(chain) == len(direct) and all(a.shape == b.shape and (a != b).nnz == 0 for a, b in zip(chain, direct))
+    P = model.predict(Xt, beam_size=MR_BEAM, only_topk=MR_TOPK)
+    p1, direct_p1 = float(smat_util.Metrics.generate(Yt, P, topk=MR_TOPK).prec[0]), numbers["prec"][0]
+    print(f"distributed train [{smi}]: {DIST_RANKS} FakeClusterComm ranks on the card, {X.shape[0]} x {Y.shape[1]}: "
+          f"{secs!r} s (clustering and train); chain {[C.shape for C in chain]} split at depth {dist.get_split_depth()}, "
+          f"equal to phase 10c's Indexer.gen chain: {same_chain}")
+    print(f"distributed train [{smi}]: P@1 {p1!r} on {Xt.shape[0]} held-out queries (direct train {direct_p1!r})")
+    if p1 < MR_MIN_P1 or abs(p1 - direct_p1) > DIST_P1_WINDOW:
+        raise RuntimeError(f"distributed train: P@1 {p1!r} below {MR_MIN_P1} or more than {DIST_P1_WINDOW} from {direct_p1!r}")
 
 
 def print_profile(prof, wall_s, what, smi, top=14):
@@ -1194,16 +1368,16 @@ def main():
     # 8. realtime session, batch 1
     realtime_launches, _ = run_realtime(xlm, X, P, n_plabel, smi, kw)
 
-    # 9. compiled folder, eager and lazy
+    # 9. compiled folder, eager and lazy (phase 5's model stays on the card for phase 12b)
     eager_launches, lazy_launches = run_compiled(compiled, X, P, n_plabel, smi, kw, device)
-    del xlm, compiled
+    del compiled
     gc.collect()
     torch.cuda.empty_cache()
 
     # 10. training: solvers, the golden fixture, the matched-recall benchmark
     check_solvers(device, smi)
     golden_launches = run_golden(device, smi)
-    train_launches, _ = run_matched_recall(device, smi)
+    train_launches, mr = run_matched_recall(device, smi)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1215,6 +1389,15 @@ def main():
     torch.cuda.empty_cache()
     sparse_build_launches, sparse_predict_launches, _ = run_ann_sparse(device, smi)
     run_ann_pairwise(base, device, smi)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 12. multi-device: the mesh's dry run, phase 5's predict sharded over lp, the dense engines, distributed train
+    run_dryrun(smi)
+    sharded_launches = run_sharded_predict(xlm, X, P, n_plabel, smi, kw)
+    run_dense_engines(mr["model"], mr["data"][2], smi)
+    run_dist_train(mr, smi, device)
 
     print(f"gpu: {smi}")
     pred = timed["predict"]
@@ -1230,6 +1413,7 @@ def main():
             "realtime": realtime_launches, "compiled_eager": eager_launches, "compiled_lazy": lazy_launches,
             "train_golden": golden_launches, "train_predict": train_launches,
             "ann_sparse_build": sparse_build_launches, "ann_sparse_predict": sparse_predict_launches,
+            "sharded_predict": sharded_launches,
         },
     }]
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,8 @@ The port of ``pecos_tpu/ann/hnsw/pq.py``: 16 centroids per subspace (4 bits a
 code), codes kept unpacked as (N, S) uint8 on the device, a per-query (B, S, 16)
 distance table (LUT), and a candidate's approximate distance
 ``sum_s LUT[b, s, code[n, s]]``.  Codebooks train with batched Lloyd rounds
-over all subspaces at once (one ``torch.bmm`` a round).
+over all subspaces at once (one ``torch.bmm`` a round), whose centroid sums
+(``torch_util.segment_sum``) repeat bit for bit from run to run on the card.
 
 The JAX package applies the LUT as a 4-level select tree, which suits the
 TPU's vector unit; on the card a gather of the table does the same job, and
@@ -19,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pecos_tpu_torch.utils.torch_util import DeviceLike, make_generator, resolve_device
+from pecos_tpu_torch.utils.torch_util import DeviceLike, make_generator, resolve_device, segment_sum
 
 
 @dataclasses.dataclass
@@ -56,10 +57,13 @@ def _kmeans16(Xs: torch.Tensor, init_idx: torch.Tensor, iters: int) -> torch.Ten
     that loses all its points keeps its place."""
     S, n, d = Xs.shape
     cent = Xs.gather(1, init_idx.long()[:, :, None].expand(S, 16, d))
+    # each point's row with a trailing 1, so one sum gives a centroid's sum and count
+    rows = torch.cat([Xs, torch.ones_like(Xs[:, :, :1])], dim=2)
     for _ in range(iters):
         assign = _sq_dists(Xs, cent).argmin(dim=-1)  # (S, n)
-        sums = torch.zeros_like(cent).scatter_add_(1, assign[:, :, None].expand(S, n, d), Xs)
-        cnts = torch.zeros((S, 16), device=Xs.device).scatter_add_(1, assign, torch.ones_like(Xs[:, :, 0]))
+        # deterministic on the card, where scatter_add_'s float atomics are not
+        sums = segment_sum(assign, rows, 16)
+        sums, cnts = sums[:, :, :d], sums[:, :, d]
         new = sums / cnts.clamp(min=1.0)[:, :, None]
         cent = torch.where(cnts[:, :, None] > 0, new, cent)
     return cent

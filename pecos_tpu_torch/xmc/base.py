@@ -643,11 +643,14 @@ def _chain_pred_params(pred_params, default, kwargs):
     return p.model_chain[-1].only_topk, tuple(q.post_processor for q in p.model_chain)
 
 
-def _reject_mesh(kwargs):
-    if kwargs.pop("mesh", None) is not None:
-        raise NotImplementedError(
-            "the mesh kwarg (label-sharded predict) is not ported yet; see ROADMAP.md, 'multi-device'"
-        )
+def _predict_on_mesh(mesh, compiled, X, beam_size, only_topk, pp_names, wire):
+    """``mesh=`` routing of predict: the label-sharded engines of
+    ``parallel.mesh.predict_sharded``, which upload float32 queries."""
+    from pecos_tpu_torch.parallel.mesh import predict_sharded
+
+    if wire != "float32":
+        raise ValueError(f"predict with a mesh sends float32 queries, not wire_value_dtype={wire!r}")
+    return predict_sharded(mesh, compiled, X, beam_size=beam_size, only_topk=only_topk, post_processor=pp_names)
 
 
 class PredictOnlyHierModel(pecos_tpu_torch.BaseClass):
@@ -680,13 +683,16 @@ class PredictOnlyHierModel(pecos_tpu_torch.BaseClass):
 
     def predict(self, X, csr_codes=None, pred_params=None, **kwargs):
         """Whole-chain beam search; kwargs: beam_size (default 10), only_topk,
-        post_processor, wire_value_dtype."""
+        post_processor, wire_value_dtype, and mesh (a ``parallel.mesh.Mesh``:
+        the label-sharded predict over its devices)."""
         if csr_codes is not None:
             raise ValueError("model is predict only: csr_codes is not supported")
-        _reject_mesh(kwargs)
+        mesh = kwargs.pop("mesh", None)
         beam_size = kwargs.pop("beam_size", None) or 10
         wire = kwargs.pop("wire_value_dtype", "float32")
         only_topk, pp_names = _chain_pred_params(pred_params, self.get_pred_params(), kwargs)
+        if mesh is not None:
+            return _predict_on_mesh(mesh, self._compiled, X, beam_size, only_topk, pp_names, wire)
         return self._compiled.predict(
             X, beam_size=beam_size, only_topk=only_topk, post_processor=pp_names, wire_value_dtype=wire
         )
@@ -912,10 +918,14 @@ class HierarchicalMLModel(pecos_tpu_torch.BaseClass):
         """Whole-chain beam search on the model's device.
 
         kwargs: beam_size (default 10), only_topk, post_processor override,
-        wire_value_dtype.  With ``csr_codes`` (a starting beam over the top
-        layer's codes) the chain runs layer by layer through MLModel.predict.
+        wire_value_dtype, and mesh: a ``parallel.mesh.Mesh`` routes the
+        predict through the label-sharded engines, each device of the mesh
+        holding 1/lp of every layer (``parallel.mesh.predict_sharded``).  With
+        ``csr_codes`` (a starting beam over the top layer's codes) the chain
+        runs layer by layer through MLModel.predict and ``mesh`` is ignored,
+        as in the JAX package.
         """
-        _reject_mesh(kwargs)
+        mesh = kwargs.pop("mesh", None)
         beam_size = kwargs.pop("beam_size", None) or 10
         if csr_codes is not None:
             p = self.get_pred_params() if pred_params is None else copy.deepcopy(pred_params)
@@ -923,6 +933,8 @@ class HierarchicalMLModel(pecos_tpu_torch.BaseClass):
             return self._predict_layer_loop(X, csr_codes=csr_codes, pred_params=p, beam_size=beam_size)
         wire = kwargs.pop("wire_value_dtype", "float32")
         only_topk, pp_names = _chain_pred_params(pred_params, self.pred_params, kwargs)
+        if mesh is not None:
+            return _predict_on_mesh(mesh, self._get_compiled(), X, beam_size, only_topk, pp_names, wire)
         return self._get_compiled().predict(
             X, beam_size=beam_size, only_topk=only_topk, post_processor=pp_names, wire_value_dtype=wire
         )

@@ -1,7 +1,8 @@
 """Hierarchical balanced spherical 2-means and label embeddings, in PyTorch.
 
 The port of ``pecos_tpu/xmc/clustering.py``.  Every node of a tree level is
-split at once: one scatter-add forms all 2^{d+1} centers, one row-wise dot
+split at once: one segment sum (``torch_util.segment_sum``, the same bits on
+every run) forms all 2^{d+1} centers, one row-wise dot
 product scores every label against its node's center difference, and one
 stable sort by (node, score) gives each label its rank within its node; the
 upper half by rank goes to the right child.  With ``imbalanced_ratio`` > 0 a
@@ -28,7 +29,7 @@ import torch
 import pecos_tpu_torch
 from pecos_tpu_torch.utils import smat_util
 from pecos_tpu_torch.utils.cluster_util import ClusterChain
-from pecos_tpu_torch.utils.torch_util import DeviceLike, make_generator, resolve_device
+from pecos_tpu_torch.utils.torch_util import DeviceLike, make_generator, resolve_device, segment_sum
 
 LOGGER = logging.getLogger(__name__)
 
@@ -107,12 +108,12 @@ def _level_split(
     )
     ratio = min(max(float(imbalanced_ratio), 0.0), 0.49)
     side = _balanced_side(codes, (feats * dirs[codes]).sum(dim=1), counts, ratio, n_nodes)
-    weighted = feats * w_sample[:, None]
+    # each label's sampled row with its weight last, so one sum gives a center's sum and count
+    weighted = torch.cat([feats * w_sample[:, None], w_sample[:, None]], dim=1)
     for _ in range(n_iter):
-        cluster = codes * 2 + side
-        sums = torch.zeros((2 * n_nodes, feats.shape[1]), dtype=torch.float32, device=feats.device).index_add_(0, cluster, weighted)
-        cnts = torch.zeros(2 * n_nodes, dtype=torch.float32, device=feats.device).index_add_(0, cluster, w_sample)
-        centers = sums / torch.clamp(cnts, min=1.0)[:, None]
+        # deterministic on the card, where index_add_'s float atomics are not
+        sums = segment_sum(codes * 2 + side, weighted, 2 * n_nodes)
+        centers = sums[:, :-1] / torch.clamp(sums[:, -1], min=1.0)[:, None]
         if spherical:
             centers = centers / torch.clamp(torch.linalg.vector_norm(centers, dim=1, keepdim=True), min=1e-12)
         diff = centers[1::2] - centers[0::2]

@@ -450,11 +450,7 @@ def beam_step(
     bias_val: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expand parents through one layer; returns (labels (N, k), values (N, k))."""
-    N, B = parents.shape
-    maxc = layer.max_children
-    safe_parents = parents.clamp(0, layer.children.shape[0] - 1)
-    cand = layer.children[safe_parents].reshape(N, B * maxc)
-    valid = (cand >= 0) & (parents >= 0).repeat_interleave(maxc, dim=1)
+    safe_parents, cand, valid = expand_beam(layer.children, parents)
     cand_safe = cand.clamp(0, layer.nr_labels - 1)
     if layer.kind == "plabel" and qids is not None:
         if layer.parent_packed is not None:
@@ -465,11 +461,38 @@ def beam_step(
         raw = score_candidates_dense_sparse(qids, qvals, layer, cand_safe, bias_id, bias_val)
     else:
         raw = score_candidates(X, layer, cand_safe)
+    return select_beam(raw, cand, valid, pvals, k, pp, no_prev)
+
+
+def expand_beam(children: torch.Tensor, parents: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The candidates of a beam: (parents clamped into the children table,
+    candidates (N, B*maxc) with -1 pads, and whether each is valid, i.e. a
+    real child of a live beam slot)."""
+    N, B = parents.shape
+    maxc = children.shape[1]
+    safe_parents = parents.clamp(0, children.shape[0] - 1)
+    cand = children[safe_parents].reshape(N, B * maxc)
+    valid = (cand >= 0) & (parents >= 0).repeat_interleave(maxc, dim=1)
+    return safe_parents, cand, valid
+
+
+def select_beam(
+    raw: torch.Tensor,  # (N, B*maxc) raw scores of the candidates
+    cand: torch.Tensor,
+    valid: torch.Tensor,
+    pvals: torch.Tensor,  # (N, B) path values of the beam
+    k: int,
+    pp: PostProcessor,
+    no_prev: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Post-process raw candidate scores, combine them with the path values
+    and keep the top k; returns (labels (N, k), values (N, k)), -1 labels for
+    slots with no valid candidate."""
     val = pp.transform_torch(raw)
     if not no_prev:
-        val = pp.combiner_torch(val, pvals.repeat_interleave(maxc, dim=1))
+        val = pp.combiner_torch(val, pvals.repeat_interleave(cand.shape[1] // pvals.shape[1], dim=1))
     val = torch.where(valid, val, NEG_INF)
-    k = min(k, B * maxc)
+    k = min(k, cand.shape[1])
     # jax.lax.top_k puts the lower index first among equal values; a stable
     # descending sort does the same, so ties (saturated hinges, masked slots)
     # break alike in both packages and on every device
@@ -554,6 +577,9 @@ class CompiledHierModel:
         self.bias = bias
         self.nr_features = nr_features
         self.device = devices.pop()
+        # parallel.mesh: this model's layers padded and placed on a mesh, by
+        # (mesh devices, engine), built once and reused by every sharded predict
+        self.mesh_layers: Dict[tuple, object] = {}
 
     @classmethod
     def from_host_chain(
@@ -683,6 +709,62 @@ class CompiledHierModel:
         return RealtimeSession(self, **kwargs)
 
 
+# the card sleeps this many times the host's measured enqueue of one call, plus
+# a millisecond, while the host queues the call that is timed
+_SLEEP_MARGIN = 4
+_SLEEP_RETRIES = 4
+_SLEEP_CALIBRATION_CYCLES = 1 << 24
+
+
+def _device_ms_per_call(step, state, iters: int) -> float:
+    """Mean device milliseconds of ``iters`` chained calls ``state =
+    step(state)`` on the current CUDA device, each between two CUDA events
+    queued behind a sleep of the card.
+
+    An eager call is many small launches: between two events recorded around
+    it, the card would wait on the host's launches, so the interval would be
+    the host's time.  Here the card sleeps (``torch.cuda._sleep``) while the
+    host queues the whole call, and then runs it back to back.  The sleep is
+    sized from a measured host enqueue of one call; one call is timed at a
+    time, because the launch queue holds about a thousand kernels, fewer than
+    many chained calls.  A call whose enqueue outlasted the sleep it was
+    queued behind (measured by an event before the sleep) is timed again
+    behind twice the sleep; after _SLEEP_RETRIES such doublings the call
+    must be waiting on the card itself (a host sync), and this raises."""
+    timer = lambda: torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    a, b = timer(), timer()
+    a.record()
+    torch.cuda._sleep(_SLEEP_CALIBRATION_CYCLES)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = _SLEEP_CALIBRATION_CYCLES / a.elapsed_time(b)
+    sleep_ms = _SLEEP_MARGIN * enqueue_ms + 1.0
+    total = 0.0
+    for _ in range(iters):
+        for _ in range(_SLEEP_RETRIES + 1):
+            before, start, end = timer(), timer(), timer()
+            t0 = time.perf_counter()
+            before.record()
+            torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+            start.record()
+            nxt = step(state)
+            end.record()
+            queued_ms = (time.perf_counter() - t0) * 1e3
+            end.synchronize()
+            if queued_ms < before.elapsed_time(start):
+                break
+            sleep_ms *= 2
+        else:
+            raise RuntimeError(f"the timed call took {queued_ms!r} ms to queue behind a {sleep_ms / 2!r} ms sleep: it waits on the card")
+        total += start.elapsed_time(end)
+        state = nxt
+    return total / iters
+
+
 class RealtimeSession:
     """Persistent low-latency predict session over a compiled model.
 
@@ -764,8 +846,10 @@ class RealtimeSession:
         """Milliseconds per beam walk of one session batch, the host's upload
         and fetch left out: ``iters`` walks chained on the device (each shifts
         the query ids by the previous walk's top label mod 7, a tensor, so the
-        walks run strictly in turn and the host never waits), timed by CUDA
-        events on a GPU and by the host clock on the CPU.  X defaults to
+        walks run strictly in turn and the host never waits), timed on a GPU
+        by CUDA events around each walk queued behind a sleep of the card
+        (:func:`_device_ms_per_call`), so the time is the card's and not the
+        host's launches, and by the host clock on the CPU.  X defaults to
         random queries with ``cap`` nonzeros; its first ``batch`` rows are
         used, and a row with more than ``cap`` nonzeros raises."""
         if iters < 1:
@@ -786,18 +870,11 @@ class RealtimeSession:
             shift = (labels[0, 0] % 7).to(torch.int32)
             return torch.where(qids >= D + 1, qids, (qids + shift) % D)
 
-        walk(ids_d)  # warm
+        walk(ids_d)  # warm: every shape allocated, so no walk waits on the allocator
         qids = ids_d
         if model.device.type == "cuda":
             with torch.cuda.device(model.device):
-                torch.cuda.synchronize()
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(iters):
-                    qids = walk(qids)
-                end.record()
-                end.synchronize()
-                return start.elapsed_time(end) / iters
+                return _device_ms_per_call(walk, qids, iters)
         t0 = time.perf_counter()
         for _ in range(iters):
             qids = walk(qids)

@@ -176,12 +176,23 @@ def _dense_contractions(X: torch.Tensor):
     return (lambda W: torch.bmm(X, W)), (lambda G: torch.bmm(X.transpose(1, 2), G))
 
 
-def _solve_dense(X, y, c, *, loss, eps, max_newton, cg_max) -> torch.Tensor:
-    """Newton-CG on a dense batched X (B, N, F); l1hinge runs its continuation."""
+def solve_contractions(
+    margins: Contraction, xt_apply: Contraction, y: torch.Tensor, c: torch.Tensor, F: int, *, loss, eps, max_newton, cg_max
+) -> torch.Tensor:
+    """Newton-CG over an X given by its two contractions, l1hinge with its
+    continuation; returns W (B, F, ns).  The dense layouts pass ``torch.bmm``
+    of one tensor; ``parallel.mesh.shard_solve_block`` passes X's row shards
+    (margins concatenated, X^T G summed over the shards)."""
     gammas = _L1_GAMMA_STAGES if loss == "l1hinge" else (_L1_SMOOTH_GAMMA,)
     return _newton_cg(
-        *_dense_contractions(X), y, c, X.shape[2],
-        loss=loss, eps=eps, max_newton=max_newton, cg_max=cg_max, gammas=gammas,
+        margins, xt_apply, y, c, F, loss=loss, eps=eps, max_newton=max_newton, cg_max=cg_max, gammas=gammas,
+    )
+
+
+def _solve_dense(X, y, c, *, loss, eps, max_newton, cg_max) -> torch.Tensor:
+    """Newton-CG on a dense batched X (B, N, F)."""
+    return solve_contractions(
+        *_dense_contractions(X), y, c, X.shape[2], loss=loss, eps=eps, max_newton=max_newton, cg_max=cg_max
     )
 
 

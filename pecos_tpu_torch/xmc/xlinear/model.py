@@ -196,7 +196,8 @@ class XLinearModel(pecos_tpu_torch.BaseClass):
 
     def predict(self, X, pred_params=None, **kwargs) -> smat.csr_matrix:
         """Beam-search predict; kwargs: beam_size, only_topk, post_processor,
-        wire_value_dtype, csr_codes."""
+        wire_value_dtype, csr_codes, and mesh (a ``parallel.mesh.Mesh``: the
+        label-sharded predict over its devices)."""
         return self.model.predict(
             X,
             csr_codes=kwargs.pop("csr_codes", None),

@@ -39,6 +39,28 @@ def _blobs(n_blobs, per_blob, D, seed, spread=0.05):
     return X / np.linalg.norm(X, axis=1, keepdims=True)
 
 
+@pytest.mark.parametrize("block", [None, 64])
+def test_segment_sum_matches_index_add(block, monkeypatch):
+    """The centers' deterministic sum (a stable sort by target, float64
+    prefix sums) against float64 index_add_ rounded to float32: equal up to
+    float64 rounding, one problem or a batch of them, in one column block and
+    one scan chunk or in several; empty targets sum to 0."""
+    from pecos_tpu_torch.utils import torch_util
+
+    if block is not None:
+        monkeypatch.setattr(torch_util, "_SEGMENT_SUM_BLOCK", block)
+        monkeypatch.setattr(torch_util, "_SCAN_CHUNK", 8)
+    rng = np.random.default_rng(0)
+    idx = torch.from_numpy(rng.integers(0, 12, size=(3, 40)))
+    src = torch.from_numpy(rng.standard_normal((3, 40, 5)).astype(np.float32))
+    want = torch.stack([torch.zeros(13, 5, dtype=torch.float64).index_add_(0, i, s.double()) for i, s in zip(idx, src)])
+    got = torch_util.segment_sum(idx, src, 13)
+    assert got.dtype == torch.float32 and got.shape == (3, 13, 5)
+    np.testing.assert_allclose(got.numpy(), want.float().numpy(), rtol=1e-6, atol=1e-6)
+    assert float(got[:, 12].abs().max()) == 0.0  # target 12 is never hit
+    np.testing.assert_array_equal(torch_util.segment_sum(idx[1], src[1], 13).numpy(), got[1].numpy())
+
+
 def _codes_both(feats, depth, seed, n_iter=10, rate=1.0, ratio=0.0, spherical=True):
     """Leaf codes of JAX's _level_split and of the port's fed JAX's draws,
     level by level (each package continues from its own codes)."""

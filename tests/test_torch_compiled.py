@@ -16,6 +16,7 @@ import torch
 
 from pecos_tpu.xmc import inference as jax_inf
 from pecos_tpu.xmc.xlinear import XLinearModel as JaxXLinear
+from pecos_tpu_torch.parallel.mesh import make_mesh
 from pecos_tpu_torch.xmc import PredictOnlyHierModel
 from pecos_tpu_torch.xmc.inference import (
     CompiledHierModel,
@@ -119,10 +120,13 @@ def test_predict_only_surface(compiled_models):
         m.save("unused")
     with pytest.raises(ValueError, match="predict only"):
         port.predict(X, csr_codes=X[:, :2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.predict(X, mesh=object())
-    # a session and the wire options run on the predict-only model too
+    # a mesh of 8 CPU "devices" (dp 4, lp 2) predicts through the label-sharded engine
     kw = dict(beam_size=4, only_topk=5)
+    mesh = make_mesh(8, devices=["cpu"] * 8)
+    assert_same_predictions(port.predict(X, **kw), port.predict(X, mesh=mesh, **kw))
+    with pytest.raises(ValueError, match="float32"):
+        port.predict(X, mesh=mesh, wire_value_dtype="float16", **kw)
+    # a session and the wire options run on the predict-only model too
     sess = port.realtime_session(batch=2, cap=16, **kw)
     assert_same_predictions(port.predict(X[:2], **kw), sess.predict(X[:2]))
     P16 = port.predict(X, wire_value_dtype="float16", **kw)

@@ -73,6 +73,20 @@ leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (m in
 assert not leaked, leaked
 """
 
+_PARALLEL_MODULES = """
+import sys
+sys.modules["jax"] = None
+import pecos_tpu_torch.parallel, pecos_tpu_torch.parallel.comm, pecos_tpu_torch.parallel.mesh, pecos_tpu_torch.parallel.dryrun
+import pecos_tpu_torch.distributed, pecos_tpu_torch.distributed.diagnostic_tools, pecos_tpu_torch.distributed.diagnostic_tools.comm_check
+import pecos_tpu_torch.distributed.xmc, pecos_tpu_torch.distributed.xmc.base
+import pecos_tpu_torch.distributed.xmc.xlinear, pecos_tpu_torch.distributed.xmc.xlinear.model, pecos_tpu_torch.distributed.xmc.xlinear.train
+from pecos_tpu_torch.parallel import DummyComm, make_mesh
+from pecos_tpu_torch.distributed.xmc.xlinear import DistributedXLinearModel
+assert make_mesh(4, devices=["cpu"] * 4).shape == {"dp": 2, "lp": 2}
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (m in ("jax", "pecos_tpu") or m.startswith(("jax.", "pecos_tpu."))))
+assert not leaked, leaked
+"""
+
 # an HNSW folder the JAX package saved searches in the port without jax
 _LOAD_JAX_HNSW = """
 import sys
@@ -95,7 +109,7 @@ def _run(args, cwd):
 def test_port_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 28  # every module of the package was walked, ann/ included
+    assert int(proc.stdout.strip()) >= 40  # every module of the package was walked, ann/, parallel/ and distributed/ included
 
 
 def test_train_modules_import_without_jax():
@@ -105,6 +119,11 @@ def test_train_modules_import_without_jax():
 
 def test_ann_modules_import_without_jax():
     proc = _run(["-c", _ANN_MODULES], cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_parallel_and_distributed_modules_import_without_jax():
+    proc = _run(["-c", _PARALLEL_MODULES], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
 
 

@@ -14,6 +14,7 @@ import torch
 from pecos_tpu.utils import smat_util as jax_smat_util
 from pecos_tpu.xmc import Indexer, LabelEmbeddingFactory
 from pecos_tpu.xmc.xlinear import XLinearModel as JaxXLinear
+from pecos_tpu_torch.parallel.mesh import make_mesh
 from pecos_tpu_torch.utils import smat_util
 from pecos_tpu_torch.xmc.xlinear import XLinearModel
 from pecos_tpu_torch.xmc.xlinear import predict as predict_cli
@@ -92,12 +93,15 @@ def test_cuda_without_gpu_raises(jax_model_folder):
 
 def test_unported_paths_raise(jax_model_folder):
     """csr_codes (a starting beam over the top layer's codes) predicts the JAX
-    package's labels; the mesh kwarg (multi-device) still raises."""
+    package's labels, and ignores the mesh kwarg as the JAX package does; the
+    mesh kwarg, once a path left out, predicts the JAX package's labels."""
     folder, X, Y = jax_model_folder
     port = XLinearModel.load(folder, device="cpu")
     n_codes = port.model.nr_codes
     codes = smat.csr_matrix(np.tile(np.arange(1, n_codes + 1, dtype=np.float32) / n_codes, (X.shape[0], 1)))
     kw = dict(csr_codes=codes, beam_size=4, only_topk=5)
-    _assert_same(JaxXLinear.load(folder).predict(X, **kw), port.predict(X, **kw), Y)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.predict(X, mesh=object())
+    want = JaxXLinear.load(folder).predict(X, **kw)
+    _assert_same(want, port.predict(X, **kw), Y)
+    _assert_same(want, port.predict(X, mesh=object(), **kw), Y)
+    mesh = make_mesh(4, devices=["cpu"] * 4)
+    _assert_same(JaxXLinear.load(folder).predict(X, beam_size=4, only_topk=5), port.predict(X, mesh=mesh, beam_size=4, only_topk=5), Y)
