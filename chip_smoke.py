@@ -1031,21 +1031,13 @@ def run_ann_sparse(device, smi):
     return build_launches, predict_launches, numbers
 
 
-def mesh_devices(n=SHARDS):
-    """The first n cards, or the one card n times: a mesh of n shards on what the machine has."""
-    import torch
-
-    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return cards[:n] if len(cards) >= n else [cards[0]] * n
-
-
 def run_dryrun(smi):
     """Phase 12a: the mesh's dry run on SHARDS shards."""
     from pecos_tpu_torch.parallel.dryrun import dryrun
-    from pecos_tpu_torch.parallel.mesh import make_mesh
+    from pecos_tpu_torch.parallel.mesh import cuda_devices, make_mesh
 
     t0 = time.perf_counter()
-    out = dryrun(make_mesh(devices=mesh_devices()))
+    out = dryrun(make_mesh(devices=cuda_devices(SHARDS)))
     print(f"multi-device dryrun [{smi}]: {out['mesh']} in {time.perf_counter() - t0!r} s")
 
 
@@ -1055,9 +1047,9 @@ def run_sharded_predict(xlm, X, P5, n_plabel, smi, kw):
     import torch
 
     from pecos_tpu_torch.ops.intersect import intersect_scores
-    from pecos_tpu_torch.parallel.mesh import make_mesh, mesh_layers
+    from pecos_tpu_torch.parallel.mesh import cuda_devices, make_mesh, mesh_layers
 
-    mesh = make_mesh(SHARDS, dp=1, devices=mesh_devices())
+    mesh = make_mesh(SHARDS, dp=1, devices=cuda_devices(SHARDS))
     compiled = xlm.model._get_compiled()
     gc.collect()
     torch.cuda.synchronize()
@@ -1102,9 +1094,9 @@ def run_dense_engines(model, Xt, smi):
     dense queries."""
     import torch
 
-    from pecos_tpu_torch.parallel.mesh import make_mesh, shard_chain_predict, shard_chain_predict_labels
+    from pecos_tpu_torch.parallel.mesh import cuda_devices, make_mesh, shard_chain_predict, shard_chain_predict_labels
 
-    mesh = make_mesh(devices=mesh_devices())
+    mesh = make_mesh(devices=cuda_devices(SHARDS))
     compiled = model.model._get_compiled()
     Xd = Xt.toarray()
     kw = dict(beam_size=MR_BEAM, only_topk=MR_TOPK)

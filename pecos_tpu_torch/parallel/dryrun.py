@@ -21,7 +21,7 @@ import torch
 from pecos_tpu_torch.utils.torch_util import DeviceLike
 from pecos_tpu_torch.xmc import HierarchicalMLModel, MLModel
 from pecos_tpu_torch.xmc.inference import CompiledHierModel
-from .mesh import Mesh, make_mesh, mesh_layers, predict_sharded, shard_chain_predict, shard_chain_predict_labels, shard_solve_block
+from .mesh import Mesh, cuda_devices, make_mesh, mesh_layers, predict_sharded, shard_chain_predict, shard_chain_predict_labels, shard_solve_block
 
 
 def toy_model(L0: int = 8, L1: int = 64, L2: int = 512, D: int = 128, seed: int = 0, device: DeviceLike = "cpu"):
@@ -92,12 +92,7 @@ def main(args=None):
     p.add_argument("n_devices", type=int, nargs="?", default=8)
     p.add_argument("--device", default="cuda", help="cpu: the CPU repeated; cuda: the first n cards, or card 0 n times")
     a = p.parse_args(args)
-    if a.device == "cpu":
-        devices = ["cpu"] * a.n_devices
-    else:
-        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())] or [torch.device(a.device)]
-        devices = cards[: a.n_devices] if len(cards) >= a.n_devices else [cards[0]] * a.n_devices
-    dryrun(make_mesh(devices=devices))
+    dryrun(make_mesh(devices=["cpu"] * a.n_devices if a.device == "cpu" else cuda_devices(a.n_devices)))
 
 
 if __name__ == "__main__":

@@ -92,6 +92,15 @@ def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None, devices
     return Mesh([devices[i * lp : (i + 1) * lp] for i in range(dp)])
 
 
+def cuda_devices(n: int) -> List[torch.device]:
+    """n devices for a mesh of n shards on the cards there are: the first n
+    cards, or card 0 repeated n times when there are fewer."""
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if not cards:
+        raise RuntimeError("cuda_devices: no CUDA device")
+    return cards[:n] if len(cards) >= n else [cards[0]] * n
+
+
 def _pad_layer_labels(layer: DeviceLayer, lp: int) -> DeviceLayer:
     """The layer's label dimension padded to a multiple of lp: W's columns
     (dense) or the packed rows (plabel, without parent_packed), so each lp
@@ -163,7 +172,7 @@ def mesh_layers(compiled, mesh: Mesh, engine: str) -> List[List[List[DeviceLayer
     return compiled.mesh_layers[key]
 
 
-def _gather_lp(raws: List[torch.Tensor], owns: List[torch.Tensor], home: torch.device) -> torch.Tensor:
+def _gather_lp(raws: Sequence[torch.Tensor], owns: Sequence[torch.Tensor], home: torch.device) -> torch.Tensor:
     """The full candidate scores from the lp shards' scores of the candidates
     each owns: the others set to NEG_INF, moved to ``home`` and maxed.  Every
     valid candidate has exactly one owner, so it gets the owner's score bit
@@ -184,67 +193,64 @@ def _check_rows(N: int, dp: int) -> int:
     return N // dp
 
 
-def _sparse_chain(mesh: Mesh, compiled, ids: np.ndarray, vals: np.ndarray, beam_size: int, only_topk: int, pp_names):
-    """The sparse label-sharded beam search over padded queries; returns
-    (labels, values) on the mesh's first device."""
-    n = _check_rows(ids.shape[0], mesh.shape["dp"])
-    grid = mesh_layers(compiled, mesh, "parents")
-    bias_id = compiled.nr_features if compiled.bias > 0 else None
+def _beam_on_mesh(mesh: Mesh, compiled, engine: str, n_rows: int, upload, score, beam_size: int, only_topk: int, pp_names):
+    """The label-sharded beam search of both engines over ``n_rows`` queries.
+    Per dp row, ``upload(rows, dev)`` puts that row's queries on each of its
+    devices once; per level, ``score(queries, layer, j, cand, parents, dev)``
+    gives lp shard j's (scores, owned) for the expanded candidates, which are
+    gathered over lp before the row's top-k.  Returns (labels, values) on the
+    mesh's first device."""
+    n = _check_rows(n_rows, mesh.shape["dp"])
+    grid = mesh_layers(compiled, mesh, engine)
     out = []
     for i, row in enumerate(mesh.devices):
         home, shards = row[0], grid[i]
-        queries = {dev: (_upload(ids[i * n : (i + 1) * n], dev), _upload(vals[i * n : (i + 1) * n], dev)) for dev in set(row)}
+        queries = {dev: upload(slice(i * n, (i + 1) * n), dev) for dev in set(row)}
         parents, pvals = root_beam(compiled.layers[0].children.shape[0], n, pp_names[0], home)
         for d in range(compiled.depth):
             _, cand, valid = expand_beam(shards[0][d].children, parents)
-            raws, owns = [], []
-            for j, dev in enumerate(row):
-                local, (qids, qvals) = shards[j][d], queries[dev]
-                if local.kind == "dense":
-                    own, lc = _own(cand.to(dev), j, local.W.shape[1])
-                    raws.append(score_candidates_dense_sparse(qids, qvals, local, lc, bias_id, compiled.bias))
-                else:
-                    # a beam parent this shard does not own reads row -1: K1
-                    # reads nothing for it and scores 0, and it is masked below
-                    Pb, maxc, twoP = local.parent_packed.shape
-                    own_p, lpar = _own(parents.to(dev), j, Pb)
-                    rows = torch.add(torch.arange(maxc, device=dev), lpar[:, :, None], alpha=maxc)
-                    rows = torch.where(own_p[:, :, None], rows, -1).reshape(n, -1)
-                    raws.append(intersect_scores_rows(qids, qvals, local.parent_packed.view(-1, twoP), rows, bias_id, compiled.bias))
-                    own = own_p.repeat_interleave(maxc, dim=1)
-                owns.append(own)
+            raws, owns = zip(*(score(queries[dev], shards[j][d], j, cand, parents, dev) for j, dev in enumerate(row)))
             k = only_topk if d == compiled.depth - 1 else beam_size
             parents, pvals = select_beam(
                 _gather_lp(raws, owns, home), cand, valid, pvals, k, PostProcessor.get(pp_names[d]), no_prev=(d == 0)
             )
         out.append((parents, pvals))
     return _concat(mesh, out)
+
+
+def _sparse_chain(mesh: Mesh, compiled, ids: np.ndarray, vals: np.ndarray, beam_size: int, only_topk: int, pp_names):
+    """The sparse label-sharded beam search over padded queries; returns
+    (labels, values) on the mesh's first device."""
+    bias_id = compiled.nr_features if compiled.bias > 0 else None
+
+    def score(q, local, j, cand, parents, dev):
+        qids, qvals = q
+        if local.kind == "dense":
+            own, lc = _own(cand.to(dev), j, local.nr_labels)
+            return score_candidates_dense_sparse(qids, qvals, local, lc, bias_id, compiled.bias), own
+        # a beam parent this shard does not own reads row -1: K1 reads
+        # nothing for it and scores 0, and it is masked by the owned mask
+        Pb, maxc, twoP = local.parent_packed.shape
+        own_p, lpar = _own(parents.to(dev), j, Pb)
+        rows = torch.add(torch.arange(maxc, device=dev), lpar[:, :, None], alpha=maxc)
+        rows = torch.where(own_p[:, :, None], rows, -1).reshape(rows.shape[0], -1)
+        raw = intersect_scores_rows(qids, qvals, local.parent_packed.view(-1, twoP), rows, bias_id, compiled.bias)
+        return raw, own_p.repeat_interleave(maxc, dim=1)
+
+    upload = lambda rows, dev: (_upload(ids[rows], dev), _upload(vals[rows], dev))
+    return _beam_on_mesh(mesh, compiled, "parents", ids.shape[0], upload, score, beam_size, only_topk, pp_names)
 
 
 def _dense_chain(mesh: Mesh, compiled, Xd: np.ndarray, beam_size: int, only_topk: int, pp_names):
     """The dense label-sharded beam search over dense (N, D+1) queries;
     returns (labels, values) on the mesh's first device."""
-    n = _check_rows(Xd.shape[0], mesh.shape["dp"])
-    grid = mesh_layers(compiled, mesh, "labels")
-    out = []
-    for i, row in enumerate(mesh.devices):
-        home, shards = row[0], grid[i]
-        queries = {dev: _upload(np.ascontiguousarray(Xd[i * n : (i + 1) * n]), dev) for dev in set(row)}
-        parents, pvals = root_beam(compiled.layers[0].children.shape[0], n, pp_names[0], home)
-        for d in range(compiled.depth):
-            _, cand, valid = expand_beam(shards[0][d].children, parents)
-            raws, owns = [], []
-            for j, dev in enumerate(row):
-                local = shards[j][d]
-                own, lc = _own(cand.to(dev), j, local.nr_labels)
-                raws.append(score_candidates(queries[dev], local, lc))
-                owns.append(own)
-            k = only_topk if d == compiled.depth - 1 else beam_size
-            parents, pvals = select_beam(
-                _gather_lp(raws, owns, home), cand, valid, pvals, k, PostProcessor.get(pp_names[d]), no_prev=(d == 0)
-            )
-        out.append((parents, pvals))
-    return _concat(mesh, out)
+
+    def score(q, local, j, cand, parents, dev):
+        own, lc = _own(cand.to(dev), j, local.nr_labels)
+        return score_candidates(q, local, lc), own
+
+    upload = lambda rows, dev: _upload(np.ascontiguousarray(Xd[rows]), dev)
+    return _beam_on_mesh(mesh, compiled, "labels", Xd.shape[0], upload, score, beam_size, only_topk, pp_names)
 
 
 def _concat(mesh: Mesh, parts) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -650,6 +650,8 @@ def _predict_on_mesh(mesh, compiled, X, beam_size, only_topk, pp_names, wire):
 
     if wire != "float32":
         raise ValueError(f"predict with a mesh sends float32 queries, not wire_value_dtype={wire!r}")
+    if not isinstance(compiled, CompiledHierModel):
+        raise ValueError(f"predict with a mesh shards a resident model; {type(compiled).__name__} streams its layers")
     return predict_sharded(mesh, compiled, X, beam_size=beam_size, only_topk=only_topk, post_processor=pp_names)
 
 

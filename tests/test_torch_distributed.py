@@ -9,7 +9,10 @@ direct train.
 - Distributed training is held to the port's direct train over the same
   chain at a tight solve (ROADMAP F5): the subtree models solve the same
   problems on the same rows, so W agrees to rounding (atol 1e-4) and the
-  predictions' labels are equal.
+  predictions' labels are equal.  It is also held to the JAX package's
+  DistributedXLinearModel.train on the same chain, the same comm layout and
+  the same tight solve: C equal, W within the solvers' atol 1e-3, predicted
+  labels equal.
 - MultihostComm runs in 2 gloo processes under a 60 s timeout of its own.
 """
 
@@ -28,8 +31,10 @@ import torch
 
 from pecos_tpu.distributed.xmc import DistClusterChain as JaxDistClusterChain
 from pecos_tpu.distributed.xmc import DistClustering as JaxDistClustering
+from pecos_tpu.distributed.xmc.xlinear import DistributedXLinearModel as JaxDistXLinear
 from pecos_tpu.distributed.xmc.xlinear import XLinearLoadBalancer as JaxBalancer
 from pecos_tpu.parallel.comm import DummyComm as JaxDummyComm
+from pecos_tpu.parallel.comm import FakeClusterComm as JaxFakeClusterComm
 from pecos_tpu.xmc import Indexer as JaxIndexer
 from pecos_tpu.xmc import LabelEmbeddingFactory as JaxLEF
 from pecos_tpu.xmc.xlinear import XLinearModel as JaxXLinear
@@ -142,6 +147,23 @@ def _assert_matches_direct(model_dist, chain, X, Y):
     np.testing.assert_allclose(P1.data, P2.data, rtol=1e-3, atol=1e-4)
 
 
+def _assert_matches_jax(model_dist, dist, X, Y, n_ranks):
+    """The port's distributed model against the JAX package's
+    DistributedXLinearModel.train on the same chain and split depth, over
+    ``n_ranks`` ranks (JAX DummyComm for 1, JAX FakeClusterComm threads
+    otherwise) at the same tight solve."""
+    jdist = JaxDistClusterChain(dist.get_cluster_chain().chain, dist.get_split_depth())
+    train = lambda comm: JaxDistXLinear.train(X, Y, comm, dist_chain=jdist, train_params={"hlm_args": HLM_TIGHT})
+    model_jax = train(JaxDummyComm()) if n_ranks == 1 else _run_ranks(n_ranks, train, JaxFakeClusterComm)[0]
+    chain_p, chain_j = model_dist.model.model_chain, model_jax.model.model_chain
+    assert len(chain_p) == len(chain_j)
+    for a, b in zip(chain_p, chain_j):
+        assert a.W.shape == b.W.shape and _csr_equal(a.C, b.C)
+        np.testing.assert_allclose(a.W.toarray(), smat.csr_matrix(b.W).toarray(), atol=1e-3)
+    kw = dict(beam_size=4, only_topk=3)
+    np.testing.assert_array_equal(model_dist.predict(X, **kw).indices, model_jax.predict(X, **kw).indices)
+
+
 def test_distributed_train_matches_direct():
     X, Y = _synthetic(seed=2)
     comm = DummyComm()
@@ -150,11 +172,13 @@ def test_distributed_train_matches_direct():
     )
     model = DistributedXLinearModel.train(X, Y, comm, dist_chain=dist, train_params={"hlm_args": HLM_TIGHT}, device="cpu")
     _assert_matches_direct(model, dist.get_cluster_chain(), X, Y)
+    _assert_matches_jax(model, dist, X, Y, n_ranks=1)
 
 
-def _run_ranks(size, fn):
-    """fn(rank_comm) on ``size`` FakeClusterComm threads; returns the results by rank."""
-    cluster = FakeClusterComm(size)
+def _run_ranks(size, fn, cluster_cls=FakeClusterComm):
+    """fn(rank_comm) on ``size`` threads of a ``cluster_cls`` (the port's
+    FakeClusterComm or the JAX package's); returns the results by rank."""
+    cluster = cluster_cls(size)
     results, errors = [None] * size, []
 
     def run(r):
@@ -189,6 +213,7 @@ def test_multirank_distributed_train_matches_direct():
     assert results[0][0] is not None and all(r[0] is None for r in results[1:])
     assert all(_chains_equal(r[1].get_cluster_chain(), results[0][1].get_cluster_chain()) for r in results[1:])
     _assert_matches_direct(results[0][0], results[0][1].get_cluster_chain(), X, Y)
+    _assert_matches_jax(results[0][0], results[0][1], X, Y, n_ranks=3)
 
 
 def test_fake_cluster_comm_primitives():

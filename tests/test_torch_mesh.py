@@ -19,7 +19,8 @@ from pecos_tpu.xmc.solvers import solve_block as jax_solve_block
 from pecos_tpu.xmc.xlinear.model import XLinearModel as JaxXLinear
 from pecos_tpu_torch.parallel import dryrun, mesh
 from pecos_tpu_torch.xmc import HierarchicalMLModel, MLModel
-from pecos_tpu_torch.xmc.inference import CompiledHierModel
+from pecos_tpu_torch.xmc.base import PredictOnlyHierModel
+from pecos_tpu_torch.xmc.inference import CompiledHierModel, load_compiled_layers, save_compiled_layers
 from pecos_tpu_torch.xmc.solvers import solve_block
 from pecos_tpu_torch.xmc.xlinear import XLinearModel
 from test_mesh_predict import _sparse_queries, _toy_model
@@ -153,6 +154,22 @@ def test_xlinear_predict_mesh_kwarg():
     got_d = port.predict(Xd, mesh=pmesh, **kw)
     _assert_same_csr(got_d, ref, rtol=1e-4, atol=1e-5)
     _assert_same_csr(got_d, jax_model.predict(Xd, mesh=jmesh, **kw))
+
+
+def test_predict_only_mesh_kwarg(tmp_path):
+    """A predict-only model shards through ``mesh=`` when its layers are
+    resident, and a lazily loaded one, which streams its layers, is refused
+    with a clear error."""
+    jm, X = _toy_model()
+    pc = _port_model(jm)._get_compiled()
+    save_compiled_layers(pc.layers, pc.bias, pc.nr_features, str(tmp_path))
+    pmesh, kw = mesh.make_mesh(8, devices=CPU8), dict(beam_size=4, only_topk=5)
+    Xq = _sparse_queries(16, X.shape[1], nnz=5)
+    eager = PredictOnlyHierModel(load_compiled_layers(str(tmp_path), device="cpu"))
+    _assert_same_csr(eager.predict(Xq, mesh=pmesh, **kw), eager.predict(Xq, **kw))
+    lazy = PredictOnlyHierModel(load_compiled_layers(str(tmp_path), lazy=True, device="cpu"))
+    with pytest.raises(ValueError, match="resident model; MmapCompiledHierModel streams"):
+        lazy.predict(Xq, mesh=pmesh, **kw)
 
 
 @pytest.mark.parametrize("n_devices", [4, 8])
