@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch + CUDA port (pecos_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                      # phases 1-12, the result lines last
+    python3 chip_smoke.py                      # phases 1-13, the result lines last
+    python3 chip_smoke.py --profile-text2text  # phases 1-2, then cProfile over one phase-13b member's train and torch.profiler over its predict
     python3 chip_smoke.py --profile-ann        # phases 1-2, then torch.profiler over phase 11's dense build and sparse predict
     python3 chip_smoke.py --profile-predict    # phases 1-2, then torch.profiler over phase 6's batch loop and one predict
+    python3 chip_smoke.py --f8-cost PARENT     # phases 1-2, then the F8 solve and one phase-13b member's train under PARENT's package and this one's
 
 Phases, each printing a line; any failed check raises and the run exits
 non-zero:
@@ -42,7 +44,9 @@ non-zero:
              with eager; peak memory below the resident layers' bytes).
 10. train  — (a) the Newton-CG solvers on the card against the port on the
              CPU (solve_block_coded, solve_cluster_bucket, solve_sparse_rows
-             in both layouts) and host syncs per solve; (b) the golden fixture
+             in both layouts) and host syncs per solve, and F8: the chunked
+             solve_sparse_rows above the dense budget twice on the card, W
+             bit-equal, and against the CPU; (b) the golden fixture
              (tests/data) indexed and trained on the card, precision held to
              the golden run's, and once more with tfn+man negatives held to
              the same run on the CPU; (c) the repo's matched-recall training
@@ -73,6 +77,23 @@ non-zero:
              test queries against its single-device predict; (d)
              DistributedXLinearModel.train on phase 10c's data with 2 thread
              ranks (FakeClusterComm), P@1 >= 0.80 and within 0.02 of 10c's.
+13. text2text — (a) the native Tfidf (word 1-2 grams) at the repo's
+             tokenizer benchmark protocol (scripts/tokenizer_bench.py: 100,000
+             Zipf documents): train and predict docs/s, X's shape and nnz
+             beside the JAX package's record, and the gate: the first 2,000
+             documents vectorized natively and by the plain Python version
+             give equal CSR; (b) Text2Text on that corpus with 8,192 items
+             drawn onto it (90,000 train, 10,000 test lines): trained on the
+             card (two PIFA members, rank_average), test P@1 and P@5 within
+             0.02 of the JAX package's on the same files, K1 launched once per
+             plabel level, batch and member, end-to-end QPS split into
+             vectorize / XLinearModel.predict / ensemble; saved and loaded on
+             the card (equal items) and on the CPU, where a plain
+             sparse-product beam search gives >= 99.5% equal items and each
+             member's scores within rtol 1e-5 + 1e-5 x the largest; then K1
+             at the path's shapes: 64 test queries at every plabel level of
+             each member, over the padded tables the predict reads, against
+             the sparse product at the candidate columns.
 
 Every K1 launch of a phase's run is counted with the count set to 0 just
 before it.  The line before the last is a JSON object describing each kernel
@@ -186,6 +207,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # stopping test lands (ROADMAP F5), so the card and the CPU agree to rounding
 TIGHT = dict(eps=1e-6, max_newton=60, cg_max=60)
 SOLVER_ATOL = 1e-3
+# F8: (P, xcap, Db, ns) of a solve_sparse_rows above the dense budget, P * (Db + 2) > 2**28
+F8_SOLVE = (2048, 32, 140_000, 16)
 GOLDEN_ATOL = 0.02  # tests/test_golden.py's precision bar
 # the matched-recall benchmark (scripts/xmc_bench.py:41-100, benchmarks/README.md:23-36)
 MR_DATA = dict(n_trn=20000, n_tst=4000, d=4096, L=8192, seed=7)
@@ -207,6 +230,71 @@ ANN_PAIRS, ANN_LABELS = 4096, 1024  # PairwiseANN: (query, label) pairs; labels 
 # phase 12: a mesh of 4 shards; the distributed train's thread ranks and its
 # P@1 window around the direct train's
 SHARDS, DIST_RANKS, DIST_P1_WINDOW = 4, 2, 0.02
+# phase 13: the repo's tokenizer benchmark protocol (scripts/tokenizer_bench.py:24-39,
+# :81-82) and the JAX package's record of its TF-IDF matrix (benchmarks/tokenizer_tfidf.json)
+T2T_CORPUS = dict(n_docs=100_000, vocab=50_000, mean_len=60)
+T2T_VECTORIZER = {"type": "tfidf", "kwargs": {"base_vect_configs": [{"analyzer": "word", "ngram_range": [1, 2]}]}}
+T2T_JAX_RECORD = dict(shape=(100_000, 2_977_638), nnz=10_863_842)
+T2T_GATE_DOCS = 2000  # native against the plain tokenizer
+# phase 13b: labels drawn onto that corpus; the Text2Text train settings
+T2T_ITEMS, T2T_N_TRN, T2T_KEYWORD_P = 8192, 90_000, 0.8
+T2T_TRAIN = dict(
+    label_embed_type=["pifa"], ensemble_seeds=[0, 1], ens_method="rank_average",
+    vectorizer_config=T2T_VECTORIZER, indexer_kwargs=dict(MR_INDEX),
+)
+T2T_BEAM, T2T_TOPK = 10, 10
+# Test P@1 and P@5 of the JAX package's Text2Text trained with T2T_TRAIN on
+# make_t2t_files' files (corpus digest T2T_DIGEST) on a CPU, scored by a plain
+# beam search built from the JAX package's own post-processor, children
+# tables and ensembler: `JAX_PLATFORMS=cpu python tests/text2text_reference.py
+# --workdir DIR` (PERF.md section 4).  The card has no jax, so the result is
+# written here.
+T2T_REF_PREC = (0.7288, 0.23798000000001007)
+T2T_DIGEST = "7de09c0a76e1cea8"
+T2T_PREC_WINDOW, T2T_MIN_CPU_AGREE = 0.02, 0.995
+# the card's member scores against the plain predict's on the (row, label)
+# entries both hold: rtol, and atol as a share of the largest plain score
+T2T_SCORE_RTOL, T2T_SCORE_ATOL = 1e-5, 1e-5
+T2T_K1_QUERIES = 64  # test queries K1 scores at each plabel level against the sparse product
+
+
+def corpus_digest(corpus):
+    """First 16 hex digits of the sha256 of the corpus's lines: a numpy that
+    draws another corpus from the seed shows here."""
+    import hashlib
+
+    return hashlib.sha256("\n".join(corpus).encode()).hexdigest()[:16]
+
+
+def make_t2t_files(folder, corpus, seed=SEED):
+    """Phase 13b's data in ``folder``: items.txt (T2T_ITEMS lines ``item {j}
+    kw{j:05d}``), train.txt (the first T2T_N_TRN documents) and test.txt (the
+    rest), each line ``l1,l2\\ttext``.  Each document gets 1-3 labels drawn
+    Zipf over the items; each label's keyword takes the place of one of the
+    document's words with probability T2T_KEYWORD_P.  Returns the paths
+    (items, train, test)."""
+    rng = np.random.default_rng(seed + 13)
+    n = len(corpus)
+    p = 1.0 / np.arange(1, T2T_ITEMS + 1)
+    p /= p.sum()
+    n_lab = rng.integers(1, 4, size=n)
+    labels = rng.choice(T2T_ITEMS, size=int(n_lab.sum()), p=p)
+    put = rng.uniform(size=len(labels)) < T2T_KEYWORD_P
+    where = rng.integers(0, 1 << 30, size=len(labels))
+    lines, ofs = [], 0
+    for i, text in enumerate(corpus):
+        words = text.split(" ")
+        mine = slice(ofs, ofs + n_lab[i])
+        for lab, ok, w in zip(labels[mine], put[mine], where[mine]):
+            if ok:
+                words[w % len(words)] = f"kw{lab:05d}"
+        lines.append(",".join(str(l) for l in sorted(set(labels[mine].tolist()))) + "\t" + " ".join(words))
+        ofs += n_lab[i]
+    paths = [os.path.join(folder, f) for f in ("items.txt", "train.txt", "test.txt")]
+    for path, rows in zip(paths, ([f"item {j} kw{j:05d}" for j in range(T2T_ITEMS)], lines[:T2T_N_TRN], lines[T2T_N_TRN:])):
+        with open(path, "w", encoding="utf-8") as f:
+            f.write("\n".join(rows) + "\n")
+    return paths
 
 
 def check_k1(device, cases=K1_CASES):
@@ -670,6 +758,48 @@ def check_solvers(device, smi):
             raise RuntimeError(f"train solvers {name}: W differs from the CPU's by {err!r} > {SOLVER_ATOL}")
         worst = max(worst, err)
     return worst
+
+
+def f8_inputs():
+    """(ids, vals, y, c) of the F8 solve: half of each row's ids from 2,000
+    shared features, so runs of one id are long; padded slots hold Db."""
+    P, xcap, Db, ns = F8_SOLVE
+    rng = np.random.default_rng(SEED + 8)
+    half = xcap // 2
+    ids = np.concatenate([unique_rows(rng, P, half, 2000), 2000 + unique_rows(rng, P, xcap - half, Db - 2000)], axis=1)
+    ids[::3, -4:] = Db
+    vals = np.where(ids < Db, rng.standard_normal((P, xcap)), 0.0).astype(np.float32)
+    y = np.where(rng.uniform(size=(P, ns)) < 0.3, 1.0, -1.0).astype(np.float32)
+    c = rng.uniform(0.5, 1.5, size=(P, ns)).astype(np.float32)
+    return ids, vals, y, c
+
+
+def check_f8_solve(device, smi):
+    """Phase 10a, F8: solve_sparse_rows at a shape above the dense budget, so
+    the chunked layout runs as a large train runs it: twice on the card with
+    bit-equal W, and within SOLVER_ATOL of the CPU (inputs: f8_inputs)."""
+    import torch
+
+    from pecos_tpu_torch.xmc import solvers
+
+    P, xcap, Db, ns = F8_SOLVE
+    if P * (Db + 2) <= solvers._GLOBAL_DENSE_BUDGET:
+        raise RuntimeError(f"F8 solve: P * (Db + 2) = {P * (Db + 2)} fits the dense layout")
+    out, secs = [], []
+    for dev in (device, device, torch.device("cpu")):
+        args = [torch.from_numpy(a).to(dev) for a in f8_inputs()]
+        t0 = time.perf_counter()
+        out.append(solvers.solve_sparse_rows(*args, Db=Db, **TIGHT).cpu().numpy())
+        secs.append(time.perf_counter() - t0)
+    same = np.array_equal(out[0], out[1])
+    err = float(np.abs(out[0] - out[2]).max())
+    print(f"train solvers F8 [{smi}]: solve_sparse_rows chunked (P {P} x (Db {Db} + 2) = {P * (Db + 2)} > "
+          f"{solvers._GLOBAL_DENSE_BUDGET}), W {out[0].shape}: two solves on the card bit-equal {same} "
+          f"({secs[0]!r} / {secs[1]!r} s); max_abs_err vs CPU {err!r} ({secs[2]!r} s on the CPU)")
+    if not same:
+        raise RuntimeError("F8 solve: two chunked solves on the card differ")
+    if not (err <= SOLVER_ATOL and np.isfinite(out[0]).all()):
+        raise RuntimeError(f"F8 solve: W differs from the CPU's by {err!r} > {SOLVER_ATOL}")
 
 
 def run_golden(device, smi):
@@ -1163,6 +1293,299 @@ def run_dist_train(numbers, smi, device):
         raise RuntimeError(f"distributed train: P@1 {p1!r} below {MR_MIN_P1} or more than {DIST_P1_WINDOW} from {direct_p1!r}")
 
 
+def run_tfidf():
+    """Phase 13a: the native Tfidf at the repo's tokenizer-benchmark protocol
+    (host only); returns the corpus."""
+    from pecos_tpu_torch import core
+    from pecos_tpu_torch.utils.featurization.text import Vectorizer
+
+    core_s = core.build()
+    t0 = time.perf_counter()
+    corpus = load_script("tokenizer_bench").make_corpus(**T2T_CORPUS)
+    digest = corpus_digest(corpus)
+    print(f"tfidf: host core g++ {core_s:.2f} s -> {core.LIB_PATH}; corpus of {len(corpus)} documents in "
+          f"{time.perf_counter() - t0!r} s, digest {digest} (the reference's {T2T_DIGEST}: equal {digest == T2T_DIGEST})")
+    if digest != T2T_DIGEST:  # the JAX record and T2T_REF_PREC hold for that corpus only
+        raise RuntimeError(f"tfidf: corpus digest {digest}, not the reference's {T2T_DIGEST}: numpy drew another corpus")
+    t0 = time.perf_counter()
+    model = Vectorizer.train(corpus, config=T2T_VECTORIZER)
+    cold_s = time.perf_counter() - t0
+    model, train_s = best_time(lambda: Vectorizer.train(corpus, config=T2T_VECTORIZER))
+    X, predict_s = best_time(lambda: model.predict(corpus))
+    shape, nnz = tuple(X.shape), int(X.nnz)
+    print(f"tfidf: train {len(corpus) / train_s!r} docs/s ({train_s!r} s warm, best of 2; cold {cold_s!r} s), predict "
+          f"{len(corpus) / predict_s!r} docs/s ({predict_s!r} s, best of 2); X {shape}, nnz {nnz} (the JAX package's "
+          f"record {T2T_JAX_RECORD['shape']}, nnz {T2T_JAX_RECORD['nnz']}: equal {(shape, nnz) == (T2T_JAX_RECORD['shape'], T2T_JAX_RECORD['nnz'])})")
+    if (shape, nnz) != (T2T_JAX_RECORD["shape"], T2T_JAX_RECORD["nnz"]):
+        raise RuntimeError(f"tfidf: the reference's corpus gave {shape}, nnz {nnz}, not the JAX package's record")
+    gate = corpus[:T2T_GATE_DOCS]
+    native, plain = X[:T2T_GATE_DOCS], model.model.predict_plain(gate)
+    same = (np.array_equal(native.indptr, plain.indptr) and np.array_equal(native.indices, plain.indices)
+            and np.allclose(native.data, plain.data, rtol=1e-6, atol=0.0))
+    err = float(np.abs(native.data - plain.data).max()) if same else float("nan")
+    print(f"tfidf gate: the first {T2T_GATE_DOCS} documents, native against the plain Python version with the trained "
+          f"vocabulary: indptr and indices equal, data within rtol 1e-6: {same} (max abs diff {err!r})")
+    if not same:
+        raise RuntimeError("tfidf gate: the native tokenizer and its plain version disagree")
+    return corpus
+
+
+def plain_xlinear_predict(xlm, X, beam_size, only_topk, block=2048, beams=None):
+    """The beam search of an XLinearModel over its host matrices, in
+    numpy/scipy: the plain reference of phase 13b.  Each level's raw scores
+    are one sparse product X @ W over the real nonzeros (no padded layout, no
+    K1); then the level's transform, the combiner with the parent's path
+    value, and a stable descending sort of the candidates in children-table
+    order (ascending ids within a parent), as ``inference.select_beam`` takes
+    them.  Returns the top-``only_topk`` CSR, each row in rank order; the
+    parents (-1 for none) that enter each level for the first ``block`` rows
+    are appended to ``beams`` when it is a list."""
+    from pecos_tpu_torch.utils import smat_util
+    from pecos_tpu_torch.utils.cluster_util import padded_children
+    from pecos_tpu_torch.xmc.postprocessor import PostProcessor
+
+    chain = xlm.model.model_chain
+    pps = [PostProcessor.get(q.post_processor) for q in xlm.model.pred_params.model_chain]
+    X = X.tocsr().astype(np.float32)
+    if chain[0].bias > 0:
+        X = smat.hstack([X, smat.csr_matrix(np.full((X.shape[0], 1), chain[0].bias, np.float32))], format="csr")
+    Ws = [m.W.tocsc().astype(np.float32) for m in chain]
+    kids = [padded_children(m.C)[0].astype(np.int64) for m in chain]
+    labels, values = [], []
+    for s in range(0, X.shape[0], block):
+        xb = X[s : s + block]
+        n = xb.shape[0]
+        parents = np.tile(np.arange(kids[0].shape[0]), (n, 1))
+        pvals = np.full(parents.shape, pps[0].init_value, np.float32)
+        for d, (W, children, pp) in enumerate(zip(Ws, kids, pps)):
+            if beams is not None and s == 0:
+                beams.append(parents)
+            raw = (xb @ W).toarray()
+            maxc = children.shape[1]
+            cand = children[np.clip(parents, 0, None)].reshape(n, -1)
+            valid = (cand >= 0) & np.repeat(parents >= 0, maxc, axis=1)
+            val = pp.transform_np(np.take_along_axis(raw, np.clip(cand, 0, None), axis=1))
+            if d:
+                val = pp.combiner_np(val, np.repeat(pvals, maxc, axis=1))
+            val = np.where(valid, val, -np.inf).astype(np.float32)
+            k = min(only_topk if d == len(Ws) - 1 else beam_size, cand.shape[1])
+            order = np.argsort(-val, axis=1, kind="stable")[:, :k]
+            pvals = np.take_along_axis(val, order, axis=1)
+            parents = np.where(pvals > -np.inf, np.take_along_axis(cand, order, axis=1), -1)
+        labels.append(parents)
+        values.append(np.where(parents >= 0, pvals, 0.0))
+    return smat_util.csr_from_topk_arrays(np.concatenate(labels), np.concatenate(values), Ws[-1].shape[1])
+
+
+def ensemble_topk(model, preds, topk):
+    """The members' top-k CSRs combined as Text2Text.predict combines them."""
+    from pecos_tpu_torch.utils import smat_util
+
+    P = preds[0] if len(preds) == 1 else getattr(smat_util.CsrEnsembler, model.ens_method)(*preds)
+    return smat_util.sorted_csr(P.tocsr(), only_topk=topk)
+
+
+def check_scores(got, want, what):
+    """The scores of the (row, label) entries two top-k CSRs both hold,
+    within T2T_SCORE_RTOL x |want| + T2T_SCORE_ATOL x max |want|; returns
+    (entries compared, max abs err) and raises outside the tolerance."""
+    got, want = got.tocoo(), want.tocoo()
+    keys = [a.row.astype(np.int64) * a.shape[1] + a.col for a in (got, want)]
+    _, ig, iw = np.intersect1d(*keys, assume_unique=True, return_indices=True)
+    err = np.abs(got.data[ig].astype(np.float64) - want.data[iw])
+    tol = T2T_SCORE_RTOL * np.abs(want.data[iw]) + T2T_SCORE_ATOL * float(np.abs(want.data).max(initial=0.0))
+    bad, max_err = int((err > tol).sum()), float(err.max(initial=0.0))
+    print(f"{what}: {len(ig)} of {want.nnz} (row, label) entries in both, max_abs_err {max_err!r} "
+          f"(largest score {float(np.abs(want.data).max(initial=0.0))!r}), bad {bad}")
+    if bad or not np.isfinite(got.data).all():
+        raise RuntimeError(f"{what}: {bad} scores outside rtol {T2T_SCORE_RTOL} + atol {T2T_SCORE_ATOL} x max")
+    return len(ig), max_err
+
+
+def check_k1_text2text(members, host_members, X, n=T2T_K1_QUERIES):
+    """K1 at phase 13b's shapes: the first ``n`` rows of ``X`` scored at every
+    plabel level of each member by the path's call
+    (``inference.score_candidates_sparse_parents`` on the member's padded
+    ``parent_packed`` table), over the beam parents the plain predict chose
+    for them, against the sparse product X @ W at the candidate columns in
+    float64 (0 where a parent has no such child); ``host_members`` hold the
+    same weights as host matrices.  Tolerance as check_k1's.  Returns the max
+    abs error."""
+    import torch
+
+    from pecos_tpu_torch.utils.cluster_util import padded_children
+    from pecos_tpu_torch.xmc import inference
+
+    A = X[:n].tocsr().astype(np.float32)
+    n, worst = A.shape[0], 0.0
+    for i, (xlm, host) in enumerate(zip(members, host_members)):
+        compiled = xlm.model._get_compiled()
+        D, bias, dev = compiled.nr_features, compiled.bias, compiled.device
+        beams = []
+        plain_xlinear_predict(host, A, T2T_BEAM, max(T2T_TOPK, 10), beams=beams)
+        q, v = (torch.from_numpy(a).to(dev) for a in inference.prepare_queries_padded(A))
+        Xb = A.astype(np.float64)
+        if bias > 0:
+            Xb = smat.hstack([Xb, smat.csr_matrix(np.full((n, 1), bias))], format="csr")
+        for d, (layer, m) in enumerate(zip(compiled.layers, host.model.model_chain)):
+            if layer.kind != "plabel":
+                continue
+            parents = np.clip(beams[d], 0, None).astype(np.int64)  # as expand_beam clamps them
+            got = inference.score_candidates_sparse_parents(
+                q, v, layer, torch.from_numpy(parents).to(dev), D if bias > 0 else None, bias
+            ).cpu().numpy()
+            cand = padded_children(m.C)[0][parents].reshape(n, -1).astype(np.int64)
+            cols, W = np.clip(cand, 0, None), m.W.tocsc().astype(np.float64)
+            want = np.where(cand >= 0, np.take_along_axis((Xb @ W).toarray(), cols, axis=1), 0.0)
+            scale = float(np.take_along_axis((abs(Xb) @ abs(W)).toarray(), cols, axis=1).max())
+            err = np.abs(got - want)
+            bad = int((err > 1e-5 * np.abs(want) + 1e-6 * scale).sum())
+            print(f"K1 text2text member {i} level {d}: N={n} K={cand.shape[1]} table {tuple(layer.parent_packed.shape)} "
+                  f"({layer.parent_packed.numel()} int32), Qn={q.shape[1]}: max_abs_err={float(err.max())!r} "
+                  f"scale={scale!r} bad={bad}")
+            if bad or not np.isfinite(got).all():
+                raise RuntimeError(f"K1 text2text member {i} level {d}: {bad} scores outside tolerance")
+            worst = max(worst, float(err.max()))
+    return worst
+
+
+class CallTimes:
+    """Seconds of each call of the classmethod ``cls.name`` while active,
+    the card synchronized before the clock stops."""
+
+    def __init__(self, cls, name):
+        self.cls, self.name, self.seconds = cls, name, []
+
+    def __enter__(self):
+        import torch
+
+        self._orig = self.cls.__dict__[self.name]
+        fn = self._orig.__func__
+
+        def timed(klass, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(klass, *args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.cls, self.name, classmethod(timed))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self._orig)
+
+
+def run_text2text(device, smi, corpus):
+    """Phase 13b: Text2Text trained and served on the card on phase 13a's
+    corpus with labels; returns the K1 launches of the test predict and
+    K1's max abs error at the path's shapes."""
+    import torch
+
+    from pecos_tpu_torch.apps.text2text import Text2Text
+    from pecos_tpu_torch.ops.intersect import intersect_scores
+    from pecos_tpu_torch.utils import smat_util
+    from pecos_tpu_torch.utils.featurization.text import Preprocessor
+    from pecos_tpu_torch.xmc import Indexer
+    from pecos_tpu_torch.xmc.xlinear import XLinearModel
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        items, trn, tst = make_t2t_files(tmp, corpus)
+        print(f"text2text: {T2T_ITEMS} items, {T2T_N_TRN} train and {len(corpus) - T2T_N_TRN} test lines written in "
+              f"{time.perf_counter() - t0!r} s")
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with CallTimes(Indexer, "gen") as gen_s, CallTimes(XLinearModel, "train") as train_s, SolveCounter() as count:
+            t0 = time.perf_counter()
+            model = Text2Text.train(trn, items, device=device, **T2T_TRAIN)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated() - base
+        members = model.xlinear_models
+        kinds = [[l.kind for l in m.model._get_compiled().layers] for m in members]
+        print(f"text2text train [{smi}]: {total_s!r} s in all; per member index (PIFA clustering) {gen_s.seconds!r} s, "
+              f"XLinearModel.train {train_s.seconds!r} s; the rest (parse, Tfidf, PIFA) "
+              f"{total_s - sum(gen_s.seconds) - sum(train_s.seconds)!r} s; {count.solves} solves; X has "
+              f"{model.preprocessor.vectorizer.model.nr_features} features; layers {kinds}; peak device memory above "
+              f"the start {train_peak} bytes")
+
+        parsed = Preprocessor.load_data_from_file(tst, label_text_path=items)
+        texts, Yt = parsed["corpus"], parsed["label_matrix"]
+        kw = dict(topk=T2T_TOPK, beam_size=T2T_BEAM)
+        torch.cuda.reset_peak_memory_stats()
+        intersect_scores.launches = 0
+        P = model.predict(texts, ret_csr=True, **kw)
+        launches = intersect_scores.launches
+        predict_peak = torch.cuda.max_memory_allocated()
+        n_plabel = sum(k.count("plabel") for k in kinds)
+        want_launches = n_plabel * -(-len(texts) // BATCH)
+        labels, scores = ranked(P, T2T_TOPK)
+        if P.shape != (len(texts), T2T_ITEMS) or not np.isfinite(scores).all():
+            raise RuntimeError(f"text2text predict: {P.shape}, finite {np.isfinite(scores).all()}")
+        m = smat_util.Metrics.generate(Yt, P, topk=T2T_TOPK)
+        prec = [float(m.prec[0]), float(m.prec[4])]
+        print(f"text2text predict [{smi}]: {len(texts)} test texts, beam {T2T_BEAM}, top {T2T_TOPK}: P@1 {prec[0]!r}, "
+              f"P@5 {prec[1]!r}, recall@10 {float(m.recall[9])!r} (the reference's P@1, P@5 {T2T_REF_PREC}); K1 launches "
+              f"{launches} (expected {want_launches}: plabel levels {n_plabel} over {len(members)} members x "
+              f"{-(-len(texts) // BATCH)} batches); peak device memory {predict_peak} bytes")
+        if launches != want_launches or launches <= 0:
+            raise RuntimeError(f"text2text predict: K1 launched {launches} times, expected {want_launches}")
+        if T2T_REF_PREC is None or any(abs(a - b) > T2T_PREC_WINDOW for a, b in zip(prec, T2T_REF_PREC)):
+            raise RuntimeError(f"text2text predict: P@1, P@5 {prec} not within {T2T_PREC_WINDOW} of {T2T_REF_PREC}")
+
+        items_out, e2e_s = best_time(lambda: model.predict(texts, **kw))
+        if [[it for it, _ in row] for row in items_out[:3]] != [[model.output_items[j] for j in row] for row in labels[:3]]:
+            raise RuntimeError("text2text predict: the item strings differ from the CSR's labels")
+        X, vec_s = best_time(lambda: model.preprocessor.predict(texts))
+        preds, xlm_s = best_time(lambda: [x.predict(X, only_topk=max(T2T_TOPK, 10), beam_size=T2T_BEAM) for x in members])
+
+        def ensemble():
+            Q = ensemble_topk(model, preds, T2T_TOPK)
+            return [[model.output_items[j] for j in Q.indices[s:e]] for s, e in zip(Q.indptr[:-1], Q.indptr[1:])]
+
+        _, ens_s = best_time(ensemble)
+        print(f"text2text predict [{smi}]: end to end (text in, items out) {len(texts) / e2e_s!r} QPS ({e2e_s!r} s, best "
+              f"of 2); vectorize {vec_s!r} s, XLinearModel.predict x {len(members)} {xlm_s!r} s, ensemble and items "
+              f"{ens_s!r} s (each best of 2)")
+
+        folder = os.path.join(tmp, "model")
+        model.save(folder)
+        again = Text2Text.load(folder, device=device).predict(texts, ret_csr=True, **kw)
+        a_labels, a_scores = ranked(again, T2T_TOPK)
+        print(f"text2text save/load on the card: labels equal {np.array_equal(a_labels, labels)}, largest score diff "
+              f"{float(np.abs(a_scores - scores).max())!r}")
+        if not np.array_equal(a_labels, labels):
+            raise RuntimeError("text2text: the model saved and loaded on the card predicts other items")
+        # the port's CPU predict would run K1's plain version over rows padded
+        # to the longest label's nonzeros, N x K x P x Qn compares a level:
+        # too large here, so the CPU side is the plain sparse-product predict
+        t0 = time.perf_counter()
+        cpu_model = Text2Text.load(folder, device="cpu")
+        X_cpu = cpu_model.preprocessor.predict(list(texts))
+        plain = [plain_xlinear_predict(m, X_cpu, T2T_BEAM, max(T2T_TOPK, 10)) for m in cpu_model.xlinear_models]
+        P_cpu = ensemble_topk(cpu_model, plain, T2T_TOPK)
+        cpu_s = time.perf_counter() - t0
+        c_labels, _ = ranked(P_cpu, T2T_TOPK)
+        agree = float((c_labels == labels).mean())
+        pads = [[tuple(l.parent_packed.shape) for l in m.model._get_compiled().layers if l.kind == "plabel"] for m in members]
+        print(f"text2text CPU: loaded with device='cpu', {len(texts)} texts by the plain sparse-product predict in "
+              f"{cpu_s!r} s: (row, rank) items equal to the card's {agree!r}; the card's padded plabel tables "
+              f"(parents, children, 2P) {pads}")
+        if agree < T2T_MIN_CPU_AGREE:
+            raise RuntimeError(f"text2text CPU: agreement {agree!r} < {T2T_MIN_CPU_AGREE}")
+        # the scores, not only the ranking: each member's on the card against
+        # its plain predict (rank_average's ensembled scores are ranks)
+        if (X_cpu != X).nnz:
+            raise RuntimeError("text2text CPU: the loaded preprocessor vectorizes the test texts differently")
+        for i, (got, want) in enumerate(zip(preds, plain)):
+            check_scores(got, want, f"text2text scores member {i}, card against plain")
+        k1_err = check_k1_text2text(members, cpu_model.xlinear_models, X)
+    return launches, k1_err
+
+
 def print_profile(prof, wall_s, what, smi, top=14):
     """Device time by kernel from a torch.profiler run, its share of the wall
     time, and the host's launch and sync calls."""
@@ -1210,6 +1633,123 @@ def profile_ann(device, smi):
         model.predict(Q, efS=100, topk=ANN_TOPK)
         wall = time.perf_counter() - t0
     print_profile(prof, wall, "ann sparse predict efS=100", smi)
+
+
+def t2t_member_inputs(n_test):
+    """One Text2Text member's inputs on phase 13b's data, as Text2Text.train
+    makes them: (X, Y) of the train lines, X of the first ``n_test`` test
+    lines, and the PIFA label embedding."""
+    from pecos_tpu_torch.utils.featurization.text import Preprocessor
+    from pecos_tpu_torch.xmc import LabelEmbeddingFactory
+
+    corpus = load_script("tokenizer_bench").make_corpus(**T2T_CORPUS)
+    with tempfile.TemporaryDirectory() as tmp:
+        items, trn, tst = make_t2t_files(tmp, corpus)
+        parsed = Preprocessor.load_data_from_file(trn, label_text_path=items)
+        pre = Preprocessor.train(parsed["corpus"], vectorizer_config=T2T_VECTORIZER)
+        X, Y = pre.predict(parsed["corpus"]), parsed["label_matrix"]
+        Xt = pre.predict(Preprocessor.load_data_from_file(tst)["corpus"][:n_test])
+    return X, Y, Xt, LabelEmbeddingFactory.create(Y, X, method="pifa")
+
+
+# one process of ``--f8-cost``: argv tree, data folder, the solve's kwargs
+# (JSON); the package is imported from the tree, every time on the card
+F8_COST_RUN = """
+import json, os, sys, time
+tree, data, tight = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+sys.path.insert(0, tree)
+import numpy as np, scipy.sparse as smat, torch
+import pecos_tpu_torch
+from pecos_tpu_torch.xmc import solvers
+from pecos_tpu_torch.xmc.xlinear import XLinearModel
+assert os.path.dirname(os.path.dirname(os.path.abspath(pecos_tpu_torch.__file__))) == os.path.abspath(tree)
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+f8 = np.load(os.path.join(data, "f8.npz"))
+args = [torch.from_numpy(f8[k]).cuda() for k in ("ids", "vals", "y", "c")]
+solve_s = [timed(lambda: solvers.solve_sparse_rows(*args, Db=int(f8["Db"]), **tight))[1] for _ in range(3)]
+X, Y = (smat.load_npz(os.path.join(data, f"{k}.npz")) for k in ("X", "Y"))
+C = [smat.load_npz(os.path.join(data, f"C{d}.npz")) for d in range(int(f8["depth"]))]
+model, train_s = timed(lambda: XLinearModel.train(X, Y, C=C, device="cuda"))
+nnz = [int(m.W.nnz) for m in model.model.model_chain]
+print(json.dumps({"solve_s": solve_s, "train_s": train_s, "W_nnz": nnz}))
+"""
+
+
+def f8_cost(device, smi, parent):
+    """``--f8-cost PARENT``: the F8 repair's cost.  solve_sparse_rows at
+    F8_SOLVE (three solves on the card, the first one warm-up) and one
+    Text2Text member's XLinearModel.train (phase 13b's data, seed 0's chain),
+    each in a process of its own with the package of PARENT (a checkout of
+    the commit before the repair) or of this checkout, in the order parent,
+    change, change, parent."""
+    import torch
+
+    from pecos_tpu_torch.xmc import Indexer
+
+    X, Y, _, feats = t2t_member_inputs(0)
+    chain = list(Indexer.gen(feats, seed=0, device=device, **MR_INDEX))
+    del feats
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as data:
+        P, xcap, Db, ns = F8_SOLVE
+        np.savez(os.path.join(data, "f8.npz"), **dict(zip(("ids", "vals", "y", "c"), f8_inputs())), Db=Db, depth=len(chain))
+        for name, mat in (("X", X), ("Y", Y), *((f"C{d}", C) for d, C in enumerate(chain))):
+            smat.save_npz(os.path.join(data, f"{name}.npz"), mat.tocsr() if name in ("X", "Y") else mat.tocsc())
+        print(f"f8 cost: X {X.shape} nnz {X.nnz}, Y {Y.shape}, chain {[C.shape for C in chain]}; solve P {P} x (Db {Db} + 2)")
+        for name, tree in (("parent", parent), ("change", HERE), ("change", HERE), ("parent", parent)):
+            proc = subprocess.run([sys.executable, "-c", F8_COST_RUN, tree, data, json.dumps(TIGHT)],
+                                  capture_output=True, text=True, timeout=900)
+            if proc.returncode:
+                raise RuntimeError(f"f8 cost {name}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+            r = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(f"f8 cost {name} [{smi}]: solve_sparse_rows chunked {r['solve_s']!r} s (the first warm-up); one "
+                  f"member's XLinearModel.train {r['train_s']!r} s, W nnz {r['W_nnz']}")
+
+
+def profile_text2text(device, smi, n_predict=2048):
+    """``--profile-text2text``: cProfile over one Text2Text member's index and
+    train (seed 0) on phase 13b's data, host functions by own and by
+    cumulative time; then torch.profiler over that member's predict of
+    ``n_predict`` test texts."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pecos_tpu_torch.xmc import Indexer
+    from pecos_tpu_torch.xmc.xlinear import XLinearModel
+
+    X, Y, Xt, feats = t2t_member_inputs(n_predict)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    chain = Indexer.gen(feats, seed=0, device=device, **MR_INDEX)
+    model = XLinearModel.train(X, Y, C=chain, device=device)
+    torch.cuda.synchronize()
+    prof.disable()
+    print(f"text2text member train profile [{smi}]: index and train {time.perf_counter() - t0!r} s on the host's clock")
+    for key, top in (("tottime", 25), ("cumulative", 30)):
+        out = io.StringIO()
+        pstats.Stats(prof, stream=out).sort_stats(key).print_stats(top)
+        print("\n".join(l for l in out.getvalue().splitlines() if l.split() and (l.split()[0].replace("/", "").isdigit() or "ncalls" in l)))
+    kw = dict(beam_size=T2T_BEAM, only_topk=T2T_TOPK)
+    model.predict(Xt[:BATCH], **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        model.predict(Xt, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_profile(p, wall, f"text2text member predict ({Xt.shape[0]} texts)", smi)
 
 
 def batch_runner(compiled, X, device):
@@ -1291,6 +1831,12 @@ def main():
     if sys.argv[1:] == ["--profile-predict"]:
         profile_predict(device, smi)
         return 0
+    if sys.argv[1:] == ["--profile-text2text"]:
+        profile_text2text(device, smi)
+        return 0
+    if sys.argv[1:2] == ["--f8-cost"] and len(sys.argv) == 3:
+        f8_cost(device, smi, os.path.abspath(sys.argv[2]))
+        return 0
 
     # 3. K1 against its plain version: over gathered blocks, then by row id
     max_err = max(check_k1(device), check_k1_rows(device))
@@ -1366,8 +1912,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 10. training: solvers, the golden fixture, the matched-recall benchmark
+    # 10. training: solvers (F8: the chunked solve twice), the golden fixture, the matched-recall benchmark
     check_solvers(device, smi)
+    check_f8_solve(device, smi)
     golden_launches = run_golden(device, smi)
     train_launches, mr = run_matched_recall(device, smi)
     gc.collect()
@@ -1390,6 +1937,13 @@ def main():
     sharded_launches = run_sharded_predict(xlm, X, P, n_plabel, smi, kw)
     run_dense_engines(mr["model"], mr["data"][2], smi)
     run_dist_train(mr, smi, device)
+    del xlm, mr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13. text2text: Tfidf at the tokenizer benchmark's protocol, then Text2Text trained and served on the card
+    t2t_launches, t2t_k1_err = run_text2text(device, smi, run_tfidf())
+    max_err = max(max_err, t2t_k1_err)
 
     print(f"gpu: {smi}")
     pred = timed["predict"]
@@ -1405,7 +1959,7 @@ def main():
             "realtime": realtime_launches, "compiled_eager": eager_launches, "compiled_lazy": lazy_launches,
             "train_golden": golden_launches, "train_predict": train_launches,
             "ann_sparse_build": sparse_build_launches, "ann_sparse_predict": sparse_predict_launches,
-            "sharded_predict": sharded_launches,
+            "sharded_predict": sharded_launches, "text2text_predict": t2t_launches,
         },
     }]
     print(json.dumps({"kernels": kernels}))

@@ -2,28 +2,25 @@
 
 ``nvcc`` compiles every source into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds) under
-``pecos_tpu_torch/_build/``.  A content hash of the sources is stored beside
-the library and a changed hash triggers a rebuild (git checkouts do not keep
-mtimes).  A missing ``nvcc`` or a failed build raises with the compiler's
-output; there is no fallback.
+``pecos_tpu_torch/_build/``, rebuilt when the sources or the compiler change
+(``utils.build_util``).  A missing ``nvcc`` or a failed build raises with the
+compiler's output; there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
 import glob
-import hashlib
 import os
 import shutil
-import subprocess
-import time
 from typing import Optional
+
+from pecos_tpu_torch.utils.build_util import build_library
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libpecos_tpu_torch_ops.so")
-_HASH_PATH = LIB_PATH + ".srchash"
 LOG_PATH = LIB_PATH + ".log"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -36,15 +33,6 @@ _lib: Optional[ctypes.CDLL] = None
 
 def _sources():
     return sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cu")))
-
-
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        with open(src, "rb") as f:
-            h.update(os.path.basename(src).encode())
-            h.update(f.read())
-    return h.hexdigest()
 
 
 def _find_nvcc() -> str:
@@ -63,29 +51,7 @@ def _find_nvcc() -> str:
 def build(force: bool = False) -> float:
     """Compile the kernels if the library is missing or its sources changed.
     Returns the seconds spent compiling (0.0 when the library was current)."""
-    want = _source_hash()
-    have = None
-    if os.path.exists(_HASH_PATH):
-        with open(_HASH_PATH) as f:
-            have = f.read().strip()
-    if not force and have == want and os.path.exists(LIB_PATH):
-        return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    with open(LOG_PATH, "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees the old or the new file
-    with open(_HASH_PATH, "w") as f:
-        f.write(want)
-    return seconds
+    return build_library(_find_nvcc, NVCC_FLAGS, _sources(), LIB_PATH, force)
 
 
 def load_library() -> ctypes.CDLL:

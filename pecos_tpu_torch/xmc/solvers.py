@@ -13,7 +13,7 @@ Hessian products are matrix products over the whole block.
 One driver, :func:`_newton_cg`, serves every layout.  It works on a leading
 batch axis B (1 for one block, the clusters of a bucket otherwise) and takes
 the two X contractions as functions, so the dense layouts run ``torch.bmm``
-and the chunked sparse-rows layout runs gathers and ``index_add_``.  Every
+and the chunked sparse-rows layout runs gathers and sums in a fixed order.  Every
 matrix product is float32; ``torch.backends.cuda.matmul.allow_tf32`` must
 stay False (its default) for the products to match the JAX package's
 ``preferred_element_type=float32``.
@@ -31,6 +31,8 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+
+from pecos_tpu_torch.utils.torch_util import run_sums
 
 SOLVER_SQHINGE = "L2R_L2LOSS_SVC_PRIMAL"
 SOLVER_SQHINGE_DUAL = "L2R_L2LOSS_SVC_DUAL"  # same objective, solved in the primal
@@ -275,9 +277,12 @@ def solve_sparse_rows(
 
     X is densified to (P, Db+1) when that fits ``_GLOBAL_DENSE_BUDGET``;
     otherwise both contractions run over row chunks: margins gather W[ids],
-    X^T G adds ``vals * G`` into W's rows with ``index_add_``.  Both take one
-    gammas stage: unlike the dense solvers, l1hinge has no continuation here,
-    as in the JAX package."""
+    and X^T G sums ``vals * G`` into W's rows in a fixed order, so a solve
+    repeats bit for bit (no float atomics): each chunk's slots are sorted by
+    feature id once per solve, and each Newton-CG product sums the runs of
+    equal ids (``torch_util.run_sums``) and adds them to distinct rows.  Both
+    take one gamma stage: unlike the dense solvers, l1hinge has no
+    continuation here, as in the JAX package."""
     P, xcap = x_ids.shape
     ns = y.shape[1]
     ids = x_ids.long()
@@ -288,14 +293,21 @@ def solve_sparse_rows(
     else:
         pc = max(1, min(P, _SCATTER_CHUNK_ELEMENTS // max(1, xcap * ns)))
         chunks = [(ids[s : s + pc], x_vals[s : s + pc]) for s in range(0, P, pc)]
+        plans = []  # per chunk: (distinct ids, run starts, run ends, row of each sorted slot, its value)
+        for s, (i, v) in enumerate(chunks):
+            flat = i.reshape(-1)
+            order = torch.argsort(flat, stable=True)
+            uniq, counts = torch.unique_consecutive(flat[order], return_counts=True)
+            ends = counts.cumsum(0)
+            plans.append((uniq, (ends - counts)[None], ends[None], order // xcap + s * pc, v.reshape(-1)[order]))
 
         def margins(W):  # (1, Db+1, ns) -> (1, P, ns)
             return torch.cat([torch.einsum("pxn,px->pn", W[0][i], v) for i, v in chunks])[None]
 
         def xt_apply(G):  # (1, P, ns) -> (1, Db+1, ns)
             out = torch.zeros((Db + 1, ns), dtype=torch.float32, device=G.device)
-            for (i, v), g in zip(chunks, G[0].split(pc)):
-                out.index_add_(0, i.reshape(-1), (v[:, :, None] * g[:, None, :]).reshape(-1, ns))
+            for uniq, starts, ends, rows, vals in plans:
+                out[uniq] += run_sums((vals[:, None] * G[0][rows])[None], starts, ends)[0]
             return out[None]
 
     W = _newton_cg(

@@ -1,7 +1,9 @@
 """The port stands without JAX: every module of pecos_tpu_torch, and
-chip_smoke.py, import with jax blocked; params files and HNSW folders the JAX
-package writes load without importing it (ROADMAP F6); nothing runs on a CUDA
-path without a GPU or without nvcc."""
+chip_smoke.py, import with jax, sklearn, sentencepiece and transformers
+blocked, as on the GPU machine, and the host core builds from the port's own
+sources; params files and HNSW folders the JAX package writes load without
+importing it (ROADMAP F6); nothing runs on a CUDA path without a GPU or
+without nvcc, and a host core that does not compile raises."""
 
 import os
 import shutil
@@ -17,18 +19,31 @@ from pecos_tpu_torch.utils.torch_util import make_generator, resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 
+_BLOCKED = ("jax", "sklearn", "sentencepiece", "transformers")
+
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
-sys.modules["jax"] = None  # any import of jax now raises ImportError
+import importlib, os, pkgutil, sys
+for blocked in %r:
+    sys.modules[blocked] = None  # any import of it now raises ImportError
 import pecos_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pecos_tpu_torch.__path__, "pecos_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("pecos_tpu_torch.core", "pecos_tpu_torch.apps.text2text.predict", "pecos_tpu_torch.utils.mmap_valstore_util",
+             "pecos_tpu_torch.utils.featurization.text.sentencepiece_util", "pecos_tpu_torch.xmc.calibration"):
+    assert name in names, name
 import chip_smoke  # the module only: main() runs under __main__
 leaked = sorted(m for m in sys.modules if m == "pecos_tpu" or m.startswith("pecos_tpu."))
 assert not leaked, leaked
+# the host core: built from pecos_tpu_torch/core/csrc, loaded from pecos_tpu_torch/_build
+from pecos_tpu_torch import core
+from pecos_tpu_torch.utils.featurization.text import Tfidf
+assert Tfidf.train(["a b", "b c"]).predict(["a c"]).nnz == 2
+assert all(os.path.dirname(s) == os.path.join(os.path.dirname(pecos_tpu_torch.__file__), "core", "csrc") for s in core._sources())
+maps = open("/proc/self/maps").read()
+assert core.LIB_PATH in maps and "libpecos_tpu_core.so" not in maps, core.LIB_PATH
 print(len(names))
-"""
+""" % (_BLOCKED,)
 
 
 _TRAIN_MODULES = """
@@ -109,7 +124,52 @@ def _run(args, cwd):
 def test_port_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 40  # every module of the package was walked, ann/, parallel/ and distributed/ included
+    # every module of the package was walked: ann/, parallel/, distributed/, core/, apps/ and featurization/ included
+    assert int(proc.stdout.strip()) >= 59
+
+
+def test_host_core_build_failure_raises(monkeypatch, tmp_path):
+    """A source that does not compile raises with the compiler's output; no
+    path falls back to the Python tokenizer."""
+    from pecos_tpu_torch import core
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "broken.cpp").write_text("int broken( { return 0; }\n")
+    monkeypatch.setattr(core, "_CSRC_DIR", str(src))
+    monkeypatch.setattr(core, "LIB_PATH", str(tmp_path / "build" / "lib.so"))
+    with pytest.raises(RuntimeError, match="(?s)g\\+\\+ failed.*broken.cpp"):
+        core.build()
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        core.build(force=True)
+
+
+def test_build_rebuilds_for_another_compiler(tmp_path):
+    """A library built by one compiler is current for it and built again
+    when another compiler (another path or ``--version``) is found, as for a
+    ``_build/`` copied from another machine."""
+    from pecos_tpu_torch.utils.build_util import build_library
+
+    src = tmp_path / "lib.cpp"
+    src.write_text("int f() { return 1; }\n")
+    lib = str(tmp_path / "build" / "lib.so")
+
+    def fake_cc(name, version):
+        cc = tmp_path / name
+        cc.write_text(f'#!/bin/sh\n[ "$1" = --version ] && {{ echo fake cc {version}; exit 0; }}\n'
+                      'while [ "$1" != -o ]; do shift; done; echo built > "$2"\n')
+        cc.chmod(0o755)
+        return lambda: str(cc)
+
+    def built(find_cc):
+        return build_library(find_cc, ["-O3"], [str(src)], lib) > 0
+
+    assert built(fake_cc("cc", 1))
+    assert not built(fake_cc("cc", 1))  # current
+    assert built(fake_cc("cc", 2))  # the same path, another version
+    assert built(fake_cc("other-cc", 2))  # another path
+    assert not built(fake_cc("other-cc", 2))
 
 
 def test_train_modules_import_without_jax():

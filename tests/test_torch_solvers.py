@@ -123,6 +123,56 @@ def test_solve_sparse_rows_layouts(monkeypatch, loss):
     np.testing.assert_allclose(W_scatter, W_dense, rtol=2e-3, atol=2e-4)
 
 
+@pytest.mark.parametrize("loss", ["sqhinge", "logistic"])
+def test_solve_sparse_rows_chunked_fixed_order(monkeypatch, loss):
+    """F8: the chunked layout adds in a fixed order, without index_add_ or
+    scatter_add_ (float atomics on a GPU): at a tight solve it gives the
+    dense layout's W, and two solves are bit-equal.  Ids repeat within a row
+    and across rows, and padded slots point at Db."""
+    rng = np.random.default_rng(8)
+    P, xcap, Db, ns = 150, 12, 40, 5
+    ids = rng.integers(0, Db, size=(P, xcap)).astype(np.int32)
+    ids[::4, -3:] = Db
+    vals = np.where(ids < Db, rng.standard_normal((P, xcap)), 0.0).astype(np.float32)
+    y = np.where(rng.uniform(size=(P, ns)) < 0.3, 1.0, -1.0).astype(np.float32)
+    c = rng.uniform(0.5, 1.5, size=(P, ns)).astype(np.float32)
+    args = [_t(a) for a in (ids, vals, y, c)]
+    tight = dict(eps=1e-6, max_newton=60, cg_max=60)
+    W_dense = solvers.solve_sparse_rows(*args, Db=Db, loss=loss, **tight).numpy()
+
+    def atomic(*a, **k):
+        raise AssertionError("the chunked layout must not add with atomics")
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", atomic)
+    monkeypatch.setattr(torch.Tensor, "scatter_add_", atomic)
+    monkeypatch.setattr(solvers, "_GLOBAL_DENSE_BUDGET", 0)
+    monkeypatch.setattr(solvers, "_SCATTER_CHUNK_ELEMENTS", 40 * xcap * ns)  # 4 chunks, the last one short
+    W1, W2 = (solvers.solve_sparse_rows(*args, Db=Db, loss=loss, **tight).numpy() for _ in range(2))
+    np.testing.assert_array_equal(W1, W2)
+    np.testing.assert_allclose(W1, W_dense, rtol=2e-3, atol=2e-4)
+
+
+def test_run_sums_and_segment_sum():
+    """run_sums against numpy's sums of the same runs; segment_sum against
+    np.add.at, for one problem and a batch of two."""
+    from pecos_tpu_torch.utils.torch_util import run_sums, segment_sum
+
+    rng = np.random.default_rng(9)
+    src = rng.standard_normal((2, 50, 3)).astype(np.float32)
+    cuts = np.sort(rng.choice(np.arange(1, 50), size=(2, 6), replace=False), axis=1)
+    starts = np.concatenate([np.zeros((2, 1), np.int64), cuts], axis=1)
+    ends = np.concatenate([cuts, np.full((2, 1), 50, np.int64)], axis=1)
+    got = run_sums(_t(src), _t(starts), _t(ends)).numpy()
+    want = np.stack([[src[b, s:e].sum(0) for s, e in zip(starts[b], ends[b])] for b in range(2)])
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    index = rng.integers(0, 7, size=(2, 50))
+    want = np.zeros((2, 9, 3), np.float32)
+    for b in range(2):
+        np.add.at(want[b], index[b], src[b])
+    np.testing.assert_allclose(segment_sum(_t(index), _t(src), 9).numpy(), want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(segment_sum(_t(index[0]), _t(src[0]), 9).numpy(), want[0], rtol=1e-6, atol=1e-6)
+
+
 def test_prune_topk_and_count_match_jax():
     """Equal indices, ties included: the zeros left by the threshold and
     repeated magnitudes keep the lower feature id first, as lax.top_k does."""
