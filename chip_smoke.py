@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch + CUDA port (pecos_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                      # phases 1-13, the result lines last
+    python3 chip_smoke.py                      # phases 1-14, the result lines last
+    python3 chip_smoke.py --xtransformer       # phases 1-2, then phase 14 alone
+    python3 chip_smoke.py --profile-xtransformer  # phases 1-2, then torch.profiler over one XR-Transformer level's train and a predict
     python3 chip_smoke.py --profile-text2text  # phases 1-2, then cProfile over one phase-13b member's train and torch.profiler over its predict
     python3 chip_smoke.py --profile-ann        # phases 1-2, then torch.profiler over phase 11's dense build and sparse predict
     python3 chip_smoke.py --profile-predict    # phases 1-2, then torch.profiler over phase 6's batch loop and one predict
@@ -94,12 +96,31 @@ non-zero:
              at the path's shapes: 64 test queries at every plabel level of
              each member, over the padded tables the predict reads, against
              the sparse product at the candidate columns.
+14. xtransformer — (a) the five encoder families (bert, roberta, distilbert,
+             xlm-roberta, xlnet) at their base widths, random-init from a
+             seed, 8 x 128 tokens through the card and the CPU: pooled
+             embeddings agree; (b) XTransformer.train at DistilBERT-base width
+             on the first 20,000 train lines of 13b's files (X_feat a word
+             1-2 gram Tfidf of them): three fine-tuned levels whose loss
+             falls, the concat ranker (tfn) trained on [X_feat ||
+             embeddings], which launches no K1 (0 launches); predict of the
+             10,000 test texts through K1 at every plabel level, P@1 at least the
+             TF-IDF-only XLinearModel's minus 0.02, K1 launches = plabel
+             levels x batches, QPS split into tokenize / encode / concat /
+             ranker; the saved folder on the CPU (>= 99.5% equal labels); K1 at
+             the ranker's multi-chunk shapes against the float64 sparse
+             product, and timed; (c) dist_fine_tune on a mesh of the card
+             four times against one device (20 steps, dropout 0), moments
+             split four ways; (d) RankingModel with LoRA (rank 8, q_lin /
+             v_lin) on (test text, item) groups of 4: the loss falls, the
+             base stays bit-equal, the saved folder scores alike on the CPU.
 
 Every K1 launch of a phase's run is counted with the count set to 0 just
 before it.  The line before the last is a JSON object describing each kernel
 of the path; the last line is {"ok": true, "device": {...}}.
 """
 
+import copy
 import gc
 import importlib.util
 import json
@@ -256,6 +277,42 @@ T2T_PREC_WINDOW, T2T_MIN_CPU_AGREE = 0.02, 0.995
 # entries both hold: rtol, and atol as a share of the largest plain score
 T2T_SCORE_RTOL, T2T_SCORE_ATOL = 1e-5, 1e-5
 T2T_K1_QUERIES = 64  # test queries K1 scores at each plabel level against the sparse product
+# phase 14: each encoder family at its base widths (the published config.json
+# of bert-base-uncased, roberta-base, distilbert-base-uncased,
+# xlm-roberta-base and xlnet-base-cased), random-init from SEED
+_BERT_BASE = dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072)
+_ROBERTA_BASE = dict(_BERT_BASE, max_position_embeddings=514, type_vocab_size=1, layer_norm_eps=1e-5, pad_token_id=1,
+                     bos_token_id=0, eos_token_id=2)
+XTF_DISTILBERT = dict(vocab_size=30_522, dim=768, n_layers=6, n_heads=12, hidden_dim=3072, max_position_embeddings=512,
+                      dropout=0.1, attention_dropout=0.1)
+XTF_FAMILIES = {
+    "bert": dict(_BERT_BASE, vocab_size=30_522, max_position_embeddings=512),
+    "roberta": dict(_ROBERTA_BASE, vocab_size=50_265),
+    "distilbert": XTF_DISTILBERT,
+    "xlm-roberta": dict(_ROBERTA_BASE, vocab_size=250_002),
+    "xlnet": dict(vocab_size=32_000, d_model=768, n_layer=12, n_head=12, d_inner=3072, ff_activation="gelu"),
+}
+XTF_FORWARD = (8, 128)  # texts x tokens of 14a's forward
+# pooled embeddings, card against the CPU (float32 both, sums in another order)
+XTF_ENC_ATOL, XTF_ENC_RTOL = 1e-4, 1e-3
+# 14b: the first XTF_N_TRN of phase 13b's train lines (a depth cut from
+# 90,000), every test line; the matcher at DistilBERT-base width, three levels
+# of XTF_MATCHER["max_steps"] steps; the ranker with XR-Transformer's default
+# (tfn) negatives, beam and top-k as phase 13b's
+XTF_N_TRN = 20_000
+XTF_MATCHER = dict(model_type="distilbert", truncate_length=128, batch_size=32, bootstrap_method="inherit",
+                   max_steps=100, learning_rate=1e-4, seed=SEED)
+XTF_RANKER = dict(negative_sampling_scheme="tfn", beam_size=T2T_BEAM, only_topk=T2T_TOPK)
+XTF_P1_MARGIN = 0.02  # test P@1 at least the TF-IDF-only XLinearModel's minus this
+XTF_CPU_TEXTS, XTF_MIN_CPU_AGREE = 256, 0.995
+# 14c: dist_fine_tune on a mesh of 4 slots against one device, dropout 0;
+# ||mesh - one|| within XTF_DIST_REL of ||one - initial||
+XTF_DIST_DEVICES, XTF_DIST_STEPS, XTF_DIST_TEXTS, XTF_DIST_REL = 4, 20, 4096, 1e-3
+# 14d: the reranker's pairs (RR_QUERIES test texts, 4 items each) and train
+RR_QUERIES, RR_PREDICT_PAIRS, RR_CPU_PAIRS = 1000, 4000, 64
+RR_TRAIN = dict(model_type="distilbert", truncate_length=128, batch_size=16, learning_rate=1e-3, max_steps=200,
+                loss_fn="pointwise", group_size=4, lora_rank=8, lora_targets=("q_lin", "v_lin"), seed=SEED)
+RR_ATOL = 1e-4  # scores of the saved folder on the CPU (LoRA merged) against the card's
 
 
 def corpus_digest(corpus):
@@ -420,14 +477,18 @@ def k1_composite(qids, qvals, table, rows, bias_id=None, bias_val=0.0):
     return out
 
 
-def k1_bound(q, table, rows, P):
+def k1_bound(v, table, rows, P):
     """(bound ms, "bytes" or "operations", bytes) of one K1 call on these
-    inputs: the table rows it must read (each distinct row once), the index,
-    the queries and the output, over the HBM rate; its multiply-adds (rows
-    that are not -1) over the float32 rate."""
+    inputs, counting what the data needs: the real slots (value not 0, so
+    no pad) of each distinct table row read, the row index, the real query
+    nonzeros and the output, over the HBM rate; a multiply-add for each real
+    slot of every row read (rows not -1), over the float32 rate."""
+    import torch
+
+    real = (table[:, P:].view(torch.float32) != 0).sum(dim=1)
     used = rows[rows >= 0]
-    n_bytes = int(used.unique().numel()) * 2 * P * 4 + rows.numel() * 8 + 2 * q.numel() * 4 + rows.numel() * 4
-    ops = 2 * int(used.numel()) * P
+    n_bytes = int(real[used.unique()].sum()) * 8 + rows.numel() * 8 + int((v != 0).sum()) * 8 + rows.numel() * 4
+    ops = 2 * int(real[used].sum())
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), n_bytes
 
@@ -452,10 +513,25 @@ def time_k1(device, name, N, K, P, Qn, layout, pad, bias, R, iters):
     if not err <= 1e-4 * max(outs["plain"].abs().max().item(), 1.0):
         raise RuntimeError(f"K1 timing {name}: the composite differs from the plain version by {err!r}")
     del outs
+    ms = time_calls(device, fns, iters)
+    bound_ms, bound_by, n_bytes = k1_bound(v, table, rows, P)
+    return {
+        "N": N, "K": K, "P": P, "Qn": Qn, "table_rows": R, "ms": ms["kernel"], "plain_ms": ms["plain"],
+        "composite_ms": ms["composite"], "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+        "share": bound_ms / ms["kernel"],
+    }
+
+
+def time_calls(device, fns, iters):
+    """Median ms of each callable of ``fns``, called in turns (the order
+    reversed every other round), each launch timed with CUDA events after a
+    write of L2_FLUSH_BYTES, all queued behind a sleep of the card so that no
+    event interval holds host time (each wrapper's Python and ctypes
+    overhead)."""
+    import torch
+
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=device)
     events = {key: [] for key in fns}
-    # the card sleeps while the host queues every launch, so no event
-    # interval holds host time (each wrapper's Python and ctypes overhead)
     torch.cuda.synchronize()
     torch.cuda._sleep(SLEEP_CYCLES)
     for i in range(iters):
@@ -467,14 +543,7 @@ def time_k1(device, name, N, K, P, Qn, layout, pad, bias, R, iters):
             end.record()
             events[key].append((start, end))
     torch.cuda.synchronize()
-    times = {key: [s.elapsed_time(e) for s, e in ev] for key, ev in events.items()}
-    bound_ms, bound_by, n_bytes = k1_bound(q, table, rows, P)
-    ms = {key: statistics.median(t) for key, t in times.items()}
-    return {
-        "N": N, "K": K, "P": P, "Qn": Qn, "table_rows": R, "ms": ms["kernel"], "plain_ms": ms["plain"],
-        "composite_ms": ms["composite"], "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
-        "share": bound_ms / ms["kernel"],
-    }
+    return {key: statistics.median(s.elapsed_time(e) for s, e in ev) for key, ev in events.items()}
 
 
 def build_chain(L_=L, D_=D, nnz=NNZ_PER_LABEL, nr_splits=NR_SPLITS, seed=SEED):
@@ -1402,7 +1471,7 @@ def check_scores(got, want, what):
     return len(ig), max_err
 
 
-def check_k1_text2text(members, host_members, X, n=T2T_K1_QUERIES):
+def check_k1_text2text(members, host_members, X, n=T2T_K1_QUERIES, what="text2text"):
     """K1 at phase 13b's shapes: the first ``n`` rows of ``X`` scored at every
     plabel level of each member by the path's call
     (``inference.score_candidates_sparse_parents`` on the member's padded
@@ -1440,33 +1509,34 @@ def check_k1_text2text(members, host_members, X, n=T2T_K1_QUERIES):
             scale = float(np.take_along_axis((abs(Xb) @ abs(W)).toarray(), cols, axis=1).max())
             err = np.abs(got - want)
             bad = int((err > 1e-5 * np.abs(want) + 1e-6 * scale).sum())
-            print(f"K1 text2text member {i} level {d}: N={n} K={cand.shape[1]} table {tuple(layer.parent_packed.shape)} "
+            print(f"K1 {what} member {i} level {d}: N={n} K={cand.shape[1]} table {tuple(layer.parent_packed.shape)} "
                   f"({layer.parent_packed.numel()} int32), Qn={q.shape[1]}: max_abs_err={float(err.max())!r} "
                   f"scale={scale!r} bad={bad}")
             if bad or not np.isfinite(got).all():
-                raise RuntimeError(f"K1 text2text member {i} level {d}: {bad} scores outside tolerance")
+                raise RuntimeError(f"K1 {what} member {i} level {d}: {bad} scores outside tolerance")
             worst = max(worst, float(err.max()))
     return worst
 
 
 class CallTimes:
     """Seconds of each call of the classmethod ``cls.name`` while active,
-    the card synchronized before the clock stops."""
+    the card synchronized before the clock stops; with ``keep``, also
+    keep(result) of each call in ``kept``."""
 
-    def __init__(self, cls, name):
-        self.cls, self.name, self.seconds = cls, name, []
+    def __init__(self, cls, name, keep=None):
+        self.cls, self.name, self.seconds, self.keep, self.kept = cls, name, [], keep, []
 
     def __enter__(self):
-        import torch
-
         self._orig = self.cls.__dict__[self.name]
         fn = self._orig.__func__
 
         def timed(klass, *args, **kwargs):
             t0 = time.perf_counter()
             out = fn(klass, *args, **kwargs)
-            torch.cuda.synchronize()
+            sync()
             self.seconds.append(time.perf_counter() - t0)
+            if self.keep is not None:
+                self.kept.append(self.keep(out))
             return out
 
         setattr(self.cls, self.name, classmethod(timed))
@@ -1752,6 +1822,499 @@ def profile_text2text(device, smi, n_predict=2048):
     print_profile(p, wall, f"text2text member predict ({Xt.shape[0]} texts)", smi)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: XR-Transformer and the XMR reranker
+# ---------------------------------------------------------------------------
+
+
+def sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def peak_reset():
+    """Synchronize and restart the peak count; returns the bytes held now."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_bytes():
+    import torch
+
+    return torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+
+
+def write_vocab(folder, texts, size):
+    """A WordPiece vocab.txt of ``size`` entries: the five specials, then the
+    words of ``texts`` by falling count (ties by the word), then
+    ``[unused{i}]`` entries if the texts hold fewer words."""
+    from collections import Counter
+
+    counts = Counter(w for t in texts for w in t.split())
+    words = [w for w, _ in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))][: size - 5]
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+    vocab += [f"[unused{i}]" for i in range(size - len(vocab))]
+    path = os.path.join(folder, "vocab.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    return path
+
+
+def run_encoder_families(device, smi, families=None):
+    """Phase 14a: each encoder family at its base widths, random-init on the
+    CPU from SEED, copied to ``device``; XTF_FORWARD random token ids through
+    both, pooled embeddings within XTF_ENC_ATOL + XTF_ENC_RTOL x |CPU|."""
+    import torch
+
+    from pecos_tpu_torch.xmc.xtransformer import network
+
+    for family, cfg in (families or XTF_FAMILIES).items():
+        config_cls, model_cls, tok_cls = network.resolve_encoder(family)
+        t0 = time.perf_counter()
+        cpu = network.random_encoder(family, cfg, seed=SEED)
+        init_s = time.perf_counter() - t0
+        card = copy.deepcopy(cpu).to(device)
+        n, T = XTF_FORWARD
+        rng = np.random.default_rng(SEED + 14)
+        ids = rng.integers(5, cfg["vocab_size"], size=(n, T))
+        am = np.ones((n, T), np.int64)
+        am[n // 2 :, T * 3 // 4 :] = 0  # half the rows padded at the end
+        ids[am == 0] = getattr(cpu.config, "pad_token_id", 0) or 0
+        ii, mm = torch.from_numpy(ids), torch.from_numpy(am)
+        with torch.no_grad():
+            want = network.pooled_embedding(cpu(input_ids=ii, attention_mask=mm), mm).numpy()
+            card(input_ids=ii.to(device), attention_mask=mm.to(device))  # warm
+            sync()
+            t0 = time.perf_counter()
+            got = network.pooled_embedding(card(input_ids=ii.to(device), attention_mask=mm.to(device)), mm.to(device)).cpu().numpy()
+            fwd_s = time.perf_counter() - t0
+        err = np.abs(got - want)
+        bad = int((err > XTF_ENC_ATOL + XTF_ENC_RTOL * np.abs(want)).sum())
+        n_params = sum(p.numel() for p in cpu.parameters())
+        print(f"xtransformer encoder {family} [{smi}]: {model_cls.__module__}.{model_cls.__name__} ({config_cls.__name__}, "
+              f"tokenizer {tok_cls.__name__}, attention {getattr(cpu.config, '_attn_implementation', None)}), "
+              f"{n_params} parameters, CPU init {init_s!r} s; {n} x {T} tokens: card forward {fwd_s!r} s, pooled "
+              f"{got.shape} card against CPU max_abs_err {float(err.max())!r} (largest {float(np.abs(want).max())!r}), bad {bad}")
+        if bad or got.shape != (n, network.hidden_size(cpu.config)) or not np.isfinite(got).all():
+            raise RuntimeError(f"xtransformer encoder {family}: {bad} pooled values outside atol {XTF_ENC_ATOL} + rtol {XTF_ENC_RTOL}")
+        del cpu, card
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+
+def xtf_data(tmp, corpus):
+    """Phase 14's data from phase 13b's files, written in ``tmp``: the first
+    XTF_N_TRN train lines and every test line, their label matrices, the
+    item names, a Tfidf (T2T_VECTORIZER) trained on those train lines and its
+    X of both, and a WordPiece vocab file of XTF_DISTILBERT's size."""
+    from pecos_tpu_torch.utils.featurization.text import Preprocessor, Vectorizer
+
+    t0 = time.perf_counter()
+    items, trn, tst = make_t2t_files(tmp, corpus)
+    d_trn = Preprocessor.load_data_from_file(trn, label_text_path=items)
+    d_tst = Preprocessor.load_data_from_file(tst, label_text_path=items)
+    with open(items, encoding="utf-8") as f:
+        names = [l.rstrip("\n") for l in f]
+    texts, Y = d_trn["corpus"][:XTF_N_TRN], d_trn["label_matrix"][:XTF_N_TRN].tocsr()
+    t1 = time.perf_counter()
+    vec = Vectorizer.train(texts, config=T2T_VECTORIZER)
+    X, Xt = vec.predict(texts), vec.predict(d_tst["corpus"])
+    vec_s = time.perf_counter() - t1
+    data = dict(texts=texts, Y=Y, t_texts=d_tst["corpus"], Yt=d_tst["label_matrix"].tocsr(), names=names, vec=vec, X=X,
+                Xt=Xt, vocab=write_vocab(tmp, texts, XTF_DISTILBERT["vocab_size"]))
+    print(f"xtransformer data: {len(texts)} train texts (of phase 13b's {T2T_N_TRN}), {len(data['t_texts'])} test texts, "
+          f"{Y.shape[1]} labels ({int((Y.getnnz(axis=0) > 0).sum())} with a train text); X_feat {X.shape} nnz {X.nnz} "
+          f"(Tfidf {vec_s!r} s); vocab {XTF_DISTILBERT['vocab_size']} entries; {time.perf_counter() - t0!r} s in all")
+    return data
+
+
+def xtf_matcher_params(vocab, **kw):
+    from pecos_tpu_torch.xmc.xtransformer import TransformerMatcher
+
+    return TransformerMatcher.TrainParams(model_config=dict(XTF_DISTILBERT, vocab_file=vocab), **dict(XTF_MATCHER, **kw))
+
+
+def run_xtransformer(device, smi, data, tmp):
+    """Phase 14b: XTransformer.train and predict at DistilBERT-base width on
+    ``data`` (xtf_data's); the TF-IDF-only XLinearModel bar; the saved folder
+    (in ``tmp``) on the CPU; K1 at the ranker's shapes.  Returns (numbers, the
+    preliminary chain)."""
+    import torch
+
+    from pecos_tpu_torch.ops.intersect import intersect_scores
+    from pecos_tpu_torch.utils import smat_util
+    from pecos_tpu_torch.xmc import Indexer, LabelEmbeddingFactory
+    from pecos_tpu_torch.xmc.xlinear import XLinearModel
+    from pecos_tpu_torch.xmc.xtransformer import MLProblemWithText, TransformerMatcher, XTransformer, network
+    from pecos_tpu_torch.xmc.xtransformer.module import tokenize_corpus
+
+    out = {}
+    texts, Y, t_texts, Yt, X, Xt = (data[k] for k in ("texts", "Y", "t_texts", "Yt", "X", "Xt"))
+    kw = dict(beam_size=T2T_BEAM, only_topk=T2T_TOPK)
+
+    # phase 1's chain, shared with the TF-IDF-only bar: PIFA(Y, X_feat)
+    t0 = time.perf_counter()
+    chain = Indexer.gen(LabelEmbeddingFactory.create(Y, X, method="pifa"), device=device, **MR_INDEX)
+    sync()
+    index_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base = XLinearModel.train(X, Y, C=chain, device=device, **XTF_RANKER)
+    sync()
+    base_s = time.perf_counter() - t0
+    m = smat_util.Metrics.generate(Yt, base.predict(Xt, **kw), topk=T2T_TOPK)
+    base_prec = [float(m.prec[0]), float(m.prec[4])]
+    print(f"xtransformer TF-IDF-only bar [{smi}]: index {index_s!r} s (chain {[C.shape for C in chain]}), "
+          f"XLinearModel.train {base_s!r} s; test P@1 {base_prec[0]!r}, P@5 {base_prec[1]!r}")
+    del base
+    gc.collect()
+
+    tp = dict(matcher_params_chain=xtf_matcher_params(data["vocab"]), refined_indexer_params=dict(MR_INDEX))
+    start = peak_reset()
+    keep = lambda res: (res[0].nr_labels, res[0].train_losses, res[0].train_seconds)
+    with CallTimes(TransformerMatcher, "train", keep=keep) as lvl, CallTimes(Indexer, "gen") as gen, \
+            CallTimes(XLinearModel, "train") as rk:
+        intersect_scores.launches = 0
+        t0 = time.perf_counter()
+        xtf = XTransformer.train(MLProblemWithText(texts, Y, X_feat=X), clustering=chain, train_params=tp,
+                                 device=device, **XTF_RANKER)
+        sync()
+        train_s = time.perf_counter() - t0
+        train_launches = intersect_scores.launches
+    out["train_peak"] = peak_bytes() - start
+    falls = []
+    for (L_d, losses, loop_s), secs in zip(lvl.kept, lvl.seconds):
+        first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+        falls.append(last < first)
+        print(f"xtransformer level [{smi}]: {L_d} labels, {len(losses)} steps of {XTF_MATCHER['batch_size']} texts, "
+              f"{secs!r} s (the step loop {loop_s!r} s, {len(losses) / loop_s!r} optimizer steps/s; the rest "
+              f"tokenize and predict the train texts); mean loss of the first 50 steps {first!r}, of the last 50 {last!r}")
+    kinds = [l.kind for l in xtf.concat_model.model._get_compiled().layers]
+    n_plabel = kinds.count("plabel")
+    print(f"xtransformer train [{smi}]: {train_s!r} s in all: fine-tune {sum(lvl.seconds)!r} s over {len(lvl.seconds)} levels, "
+          f"refined index {gen.seconds!r} s, ranker XLinearModel.train {rk.seconds!r} s (negatives {XTF_RANKER['negative_sampling_scheme']}), "
+          f"the rest {train_s - sum(lvl.seconds) - sum(gen.seconds) - sum(rk.seconds)!r} s; ranker layers {kinds} over "
+          f"{xtf.concat_model.model.nr_features} features; K1 launches in train {train_launches}; peak device memory above "
+          f"the start {out['train_peak']} bytes")
+    if not all(falls):
+        raise RuntimeError(f"xtransformer train: the loss did not fall at every level ({falls})")
+
+    # predict: the test texts through the encoder, X_cat and the ranker's K1 levels
+    peak_reset()
+    intersect_scores.launches = 0
+    P = xtf.predict(t_texts, X_feat=Xt, **kw)
+    launches = intersect_scores.launches
+    out["predict_peak"] = peak_bytes()
+    want_launches = n_plabel * -(-len(t_texts) // BATCH)
+    labels, scores = ranked(P, T2T_TOPK)
+    m = smat_util.Metrics.generate(Yt, P, topk=T2T_TOPK)
+    prec = [float(m.prec[0]), float(m.prec[4])]
+    print(f"xtransformer predict [{smi}]: {len(t_texts)} test texts, beam {T2T_BEAM}, top {T2T_TOPK}: P@1 {prec[0]!r}, "
+          f"P@5 {prec[1]!r} (the TF-IDF-only bar {base_prec}, P@1 window -{XTF_P1_MARGIN}); K1 launches {launches} (expected "
+          f"{want_launches}: {n_plabel} plabel levels x {-(-len(t_texts) // BATCH)} batches); peak device memory {out['predict_peak']} bytes")
+    if P.shape != (len(t_texts), Y.shape[1]) or not np.isfinite(scores).all():
+        raise RuntimeError(f"xtransformer predict: {P.shape}, finite {np.isfinite(scores).all()}")
+    if launches != want_launches or launches <= 0:
+        raise RuntimeError(f"xtransformer predict: K1 launched {launches} times, expected {want_launches}")
+    if prec[0] < base_prec[0] - XTF_P1_MARGIN:
+        raise RuntimeError(f"xtransformer predict: P@1 {prec[0]!r} below the TF-IDF-only {base_prec[0]!r} - {XTF_P1_MARGIN}")
+
+    # text in, items out, and its pieces (each best of 2)
+    enc = xtf.text_encoder
+    _, e2e_s = best_time(lambda: xtf.predict(t_texts, X_feat=Xt, **kw))
+    toks, tok_s = best_time(lambda: tokenize_corpus(enc.tokenizer, t_texts, enc.pred_params.truncate_length), reps=1)
+    emb, enc_s = best_time(lambda: network.encode_batches(enc.encoder, toks, enc.device).cpu().numpy(), reps=1)
+    X_cat, cat_s = best_time(lambda: TransformerMatcher.concat_features(Xt, emb), reps=1)
+    P2, rank_s = best_time(lambda: xtf.concat_model.predict(X_cat, **kw), reps=1)
+    same = float((ranked(P2, T2T_TOPK)[0] == labels).mean())
+    if same < XTF_MIN_CPU_AGREE:
+        raise RuntimeError(f"xtransformer predict: the pieces' labels agree with XTransformer.predict's at {same!r}")
+    qn = int(np.diff(X_cat.indptr).max())
+    print(f"xtransformer predict [{smi}]: end to end (text in, items out) {len(t_texts) / e2e_s!r} QPS ({e2e_s!r} s); "
+          f"tokenize {tok_s!r} s, encode {enc_s!r} s ({len(t_texts) / (tok_s + enc_s)!r} texts/s with the tokenizer), "
+          f"concat {cat_s!r} s, ranker predict {rank_s!r} s (each once, after the two), the rest "
+          f"{e2e_s - tok_s - enc_s - cat_s - rank_s!r} s; X_cat {X_cat.shape}, a row's nonzeros "
+          f"up to {qn} (mean {X_cat.nnz / X_cat.shape[0]!r})")
+
+    # the saved folder on the CPU: the port's encoder there, the ranker by the plain sparse-product predict
+    folder = os.path.join(tmp, "xtf")
+    xtf.save(folder)
+    t0 = time.perf_counter()
+    cpu = XTransformer.load(folder, device="cpu")
+    n = min(XTF_CPU_TEXTS, len(t_texts))
+    emb_cpu = cpu.encode(t_texts[:n])
+    err = np.abs(emb_cpu - emb[:n])
+    bad = int((err > XTF_ENC_ATOL + XTF_ENC_RTOL * np.abs(emb[:n])).sum())
+    P_cpu = plain_xlinear_predict(cpu.concat_model, TransformerMatcher.concat_features(Xt[:n], emb_cpu), T2T_BEAM, T2T_TOPK)
+    agree = float((ranked(P_cpu, T2T_TOPK)[0] == labels[:n]).mean())
+    print(f"xtransformer CPU: the saved folder loaded with device='cpu' in {time.perf_counter() - t0!r} s with {n} texts: "
+          f"embeddings max_abs_err {float(err.max())!r} against the card's, bad {bad}; (row, rank) labels of the plain "
+          f"sparse-product predict equal to the card's {agree!r}")
+    if bad or agree < XTF_MIN_CPU_AGREE:
+        raise RuntimeError(f"xtransformer CPU: {bad} embedding values outside tolerance, label agreement {agree!r}")
+
+    # K1 at the ranker's shapes: every plabel level, against the float64 sparse product
+    k1_err = check_k1_text2text([xtf.concat_model], [cpu.concat_model], X_cat, what="xtransformer ranker")
+    out["k1_timed"] = time_k1_path(device, xtf.concat_model, cpu.concat_model, X_cat[:BATCH], "xtransformer_ranker", smi)
+    out.update(train_launches=train_launches, predict_launches=launches, k1_err=k1_err, prec=prec, base_prec=base_prec)
+    return out, chain
+
+
+def time_k1_path(device, xlm, host, X, name, smi, iters=10):
+    """K1 by row id at the last plabel level of ``xlm`` on the queries X
+    (one predict batch) over the beam parents the plain predict chooses:
+    the kernel at X's rows, and the kernel, the composite and the plain
+    version side by side at a common N, the most rows whose plain compare
+    block (N x K x P x its 64-query-id chunk) stays below 2**31 elements;
+    medians as time_k1's, with the bound at X's rows."""
+    import torch
+
+    from pecos_tpu_torch.ops.intersect import intersect_scores_rows, intersect_scores_rows_reference
+    from pecos_tpu_torch.xmc import inference
+
+    compiled = xlm.model._get_compiled()
+    d = max(i for i, l in enumerate(compiled.layers) if l.kind == "plabel")
+    layer = compiled.layers[d]
+    A = X.tocsr().astype(np.float32)
+    beams = []
+    plain_xlinear_predict(host, A, T2T_BEAM, T2T_TOPK, beams=beams)
+    parents = torch.from_numpy(np.clip(beams[d], 0, None).astype(np.int64)).to(compiled.device)
+    q, v = (torch.from_numpy(a).to(compiled.device) for a in inference.prepare_queries_padded(A))
+    maxc = layer.parent_packed.shape[1]
+    table = layer.parent_packed.view(-1, layer.parent_packed.shape[2])
+    rows = (parents[:, :, None] * maxc + torch.arange(maxc, device=parents.device)).reshape(parents.shape[0], -1)
+    bias = (compiled.nr_features, compiled.bias) if compiled.bias > 0 else ()
+    N, K = rows.shape
+    P = table.shape[1] // 2
+    m = min(N, max(1, (1 << 31) // (K * P * 64)))
+    fns = {
+        "kernel": lambda: intersect_scores_rows(q, v, table, rows, *bias),
+        "kernel_common": lambda: intersect_scores_rows(q[:m], v[:m], table, rows[:m], *bias),
+        "composite": lambda: k1_composite(q[:m], v[:m], table, rows[:m], *bias),
+        "plain": lambda: intersect_scores_rows_reference(q[:m], v[:m], table, rows[:m], *bias),
+    }
+    outs = {key: fn() for key, fn in fns.items()}  # warm, and the four agree where they overlap
+    err = max(float((outs[k][:m] - outs["plain"]).abs().max()) for k in ("kernel", "kernel_common", "composite"))
+    if not err <= 1e-4 * max(float(outs["plain"].abs().max()), 1.0):
+        raise RuntimeError(f"K1 timing {name}: kernel or composite differ from the plain version by {err!r}")
+    del outs
+    t = time_calls(device, fns, iters)
+    bound_ms, bound_by, n_bytes = k1_bound(v, table, rows, P)
+    entry = {"N": N, "K": K, "P": P, "Qn": int(q.shape[1]), "table_rows": int(table.shape[0]), "ms": t["kernel"],
+             "common_N": m, "common_ms": t["kernel_common"], "plain_ms": t["plain"], "composite_ms": t["composite"],
+             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes, "share": bound_ms / t["kernel"]}
+    print(f"K1 timing {name} (by id, level {d}, N={N} K={K} P={P} Qn={entry['Qn']}, table of {entry['table_rows']} rows, "
+          f"L2 flushed, median of CUDA events) [{smi}]: kernel {t['kernel']!r} ms, bound {bound_ms!r} ms ({bound_by}, "
+          f"{n_bytes} bytes), share of bound {entry['share']!r}; at N={m}: kernel {t['kernel_common']!r} ms, "
+          f"searchsorted composite {t['composite']!r} ms, plain {t['plain']!r} ms")
+    return entry
+
+
+def run_dist_fine_tune(device, smi, data, chain):
+    """Phase 14c: dist_fine_tune over a mesh of XTF_DIST_DEVICES slots (the
+    cards, or the one card repeated) against TransformerMatcher.train on one
+    device: XTF_DIST_STEPS steps of the first level on the first
+    XTF_DIST_TEXTS train texts, dropout 0; weights within XTF_DIST_REL of
+    the single device's movement from the initial weights."""
+    import torch
+
+    from pecos_tpu_torch.distributed.xmc.xtransformer import dist_fine_tune
+    from pecos_tpu_torch.utils import smat_util
+    from pecos_tpu_torch.xmc.xtransformer import MLProblemWithText, TransformerMatcher, network
+
+    Y0 = data["Y"]
+    for C in reversed(list(chain)[1:]):
+        Y0 = Y0 @ C
+    n = min(XTF_DIST_TEXTS, len(data["texts"]))
+    prob = MLProblemWithText(data["texts"][:n], smat_util.binarized(Y0.tocsr()[:n]))
+    tp = xtf_matcher_params(data["vocab"], max_steps=XTF_DIST_STEPS)
+    tp.model_config.update(dropout=0.0, attention_dropout=0.0)
+    init = network.random_encoder(tp.model_type, tp.model_config, seed=tp.seed).state_dict()
+    one, _, _ = TransformerMatcher.train(prob, train_params=tp, device=device)
+    dist, _, _ = dist_fine_tune(prob, train_params=tp, n_devices=XTF_DIST_DEVICES, device=device.type)
+    a, b = one.encoder.state_dict(), dist.encoder.state_dict()
+    diff = sum(float((b[k].cpu() - a[k].cpu()).double().square().sum()) for k in init)
+    moved = sum(float((a[k].cpu() - init[k]).double().square().sum()) for k in init)
+    diff += float(np.square(dist.head.W.astype(np.float64) - one.head.W).sum() + np.square(dist.head.b.astype(np.float64) - one.head.b).sum())
+    moved += float(np.square(one.head.W.astype(np.float64) - network.XMCHead.random(prob.nr_labels, one.hidden_size, tp.seed).W).sum())
+    rel = (diff / max(moved, 1e-30)) ** 0.5
+    max_abs = max(float((b[k].cpu() - a[k].cpu()).abs().max()) for k in init)
+    loss_rel = float(np.abs(dist.train_losses - one.train_losses).max() / np.abs(one.train_losses).max())
+    total = one.moment_bytes[0]
+    print(f"xtransformer dist_fine_tune [{smi}]: {XTF_DIST_STEPS} steps of level 0 ({prob.nr_labels} labels, {n} texts), "
+          f"mesh of {XTF_DIST_DEVICES} slots: step loop {dist.train_seconds!r} s against {one.train_seconds!r} s on one device; "
+          f"||mesh - one|| / ||one - init|| {rel!r} (max abs diff {max_abs!r}); losses max rel diff {loss_rel!r}; moment "
+          f"bytes per slot {dist.moment_bytes} (sum {sum(dist.moment_bytes)}, one device's {total}, a quarter {total / 4!r})")
+    if rel > XTF_DIST_REL or loss_rel > XTF_DIST_REL or sum(dist.moment_bytes) != total:
+        raise RuntimeError(f"xtransformer dist_fine_tune: {rel!r} / {loss_rel!r} against the single device (limit {XTF_DIST_REL})")
+    if max(dist.moment_bytes) > 0.3 * total:
+        raise RuntimeError(f"xtransformer dist_fine_tune: a slot holds {max(dist.moment_bytes)} of {total} moment bytes")
+    del one, dist
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def reranker_pairs(data, n_queries, seed=SEED):
+    """Groups of 4 (query, item) pairs: a test text with its first label's
+    item name (relevance 1) and three other items drawn uniformly (0); two
+    numeric features a pair: the Tfidf cosine of query and item name, and
+    log(1 + the item's count among the train labels)."""
+    from pecos_tpu_torch.utils import smat_util
+
+    rng = np.random.default_rng(seed + 15)
+    Yt, names = data["Yt"], data["names"]
+    rows = [i for i in range(Yt.shape[0]) if Yt.indptr[i + 1] > Yt.indptr[i]][:n_queries]
+    freq = np.log1p(np.asarray(data["Y"].sum(axis=0)).ravel())
+    Xq = smat_util.normalize(data["Xt"][rows], axis=1, norm="l2")
+    Xi = smat_util.normalize(data["vec"].predict(names), axis=1, norm="l2")
+    inputs, labels, items = [], [], []
+    for r in rows:
+        pos = int(Yt.indices[Yt.indptr[r]])
+        neg = rng.choice(np.setdiff1d(np.arange(len(names)), Yt.indices[Yt.indptr[r] : Yt.indptr[r + 1]]), 3, replace=False)
+        for j, rel in zip([pos, *neg.tolist()], (1.0, 0.0, 0.0, 0.0)):
+            inputs.append(f"{data['t_texts'][r]} [SEP] {names[j]}")
+            labels.append(rel)
+            items.append(j)
+    qi = np.repeat(np.arange(len(rows)), 4)
+    cos = np.asarray(Xq[qi].multiply(Xi[np.asarray(items)]).sum(axis=1)).ravel()
+    numr = np.stack([cos, freq[np.asarray(items)]], axis=1).astype(np.float32)
+    return inputs, np.asarray(labels, np.float32), numr
+
+
+def run_reranker(device, smi, data):
+    """Phase 14d: RankingModel at DistilBERT-base width with LoRA on the
+    reranker pairs; the loss falls, the frozen base stays bit-equal, and the
+    saved folder on the CPU scores as the card within RR_ATOL."""
+    import torch
+
+    from pecos_tpu_torch.xmc.xtransformer import network
+    from pecos_tpu_torch.xmr.reranker import RankingModel
+    from pecos_tpu_torch.xmr.reranker import model as rmodel
+
+    inputs, labels, numr = reranker_pairs(data, RR_QUERIES)
+    tp = dict(RR_TRAIN, model_config=dict(XTF_DISTILBERT, vocab_file=data["vocab"]))
+    sync()
+    t0 = time.perf_counter()
+    model = RankingModel.train(inputs, labels, numeric_feats=numr, train_params=tp, device=device)
+    sync()
+    train_s = time.perf_counter() - t0
+    losses = model.train_losses
+    first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+    init = network.random_encoder(tp["model_type"], tp["model_config"], seed=tp["seed"]).state_dict()
+    wrapped = [n for n, m in model.enc.encoder.named_modules() if isinstance(m, rmodel.LoRALinear)]
+    base = {k.replace(".base.", "."): v.cpu() for k, v in model.enc.encoder.state_dict().items() if "lora_" not in k}
+    frozen = all(torch.equal(v, init[k]) for k, v in base.items()) and set(base) == set(init)
+    n_pred = min(RR_PREDICT_PAIRS, len(inputs))
+    trunc = dict(truncate_length=tp["truncate_length"])
+    scores, pred_s = best_time(lambda: model.predict(inputs[:n_pred], numeric_feats=numr[:n_pred], **trunc))
+    acc = float((scores.reshape(-1, 4).argmax(axis=1) == 0).mean())
+    print(f"reranker [{smi}]: {len(inputs)} pairs in groups of 4, LoRA rank {tp['lora_rank']} on {len(wrapped)} projections "
+          f"({tp['lora_targets']}), {tp['loss_fn']} loss, {len(losses)} steps of {tp['batch_size']} pairs: train {train_s!r} s "
+          f"({len(losses) * tp['batch_size'] / train_s!r} pairs/s with set-up; the steps and tokenization included); "
+          f"mean loss of the first 50 steps {first!r}, of the last 50 {last!r}; frozen base bit-equal {frozen}; predict "
+          f"{n_pred / pred_s!r} pairs/s ({n_pred} pairs, best of 2), top-1 of 4 {acc!r}")
+    if not last < first or not frozen:
+        raise RuntimeError(f"reranker: loss {first!r} -> {last!r}, frozen base bit-equal {frozen}")
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        cpu = RankingModel.load(tmp, device="cpu")
+        n = RR_CPU_PAIRS
+        got = cpu.predict(inputs[:n], numeric_feats=numr[:n], **trunc)
+        err = float(np.abs(got - scores[:n]).max())
+    print(f"reranker CPU: the saved folder (LoRA merged) loaded with device='cpu', {n} pairs: max_abs_err {err!r} against "
+          f"the card's scores (largest {float(np.abs(scores[:n]).max())!r})")
+    if not err <= RR_ATOL:
+        raise RuntimeError(f"reranker CPU: scores differ by {err!r} > {RR_ATOL}")
+    del model, cpu
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def run_phase14(device, smi, corpus):
+    """Phase 14 (a)-(d); returns phase 14b's numbers."""
+    import transformers
+
+    transformers.utils.logging.set_verbosity_error()
+    transformers.utils.logging.disable_progress_bar()
+    t0 = time.perf_counter()
+    run_encoder_families(device, smi)
+    t_a = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = xtf_data(tmp, corpus)
+        numbers, chain = run_xtransformer(device, smi, data, tmp)
+        gc.collect()
+        t_b = time.perf_counter()
+        run_dist_fine_tune(device, smi, data, chain)
+        t_c = time.perf_counter()
+        run_reranker(device, smi, data)
+    print(f"xtransformer phase 14 [{smi}]: {time.perf_counter() - t0!r} s: (a) {t_a - t0!r}, (b) {t_b - t_a!r}, "
+          f"(c) {t_c - t_b!r}, (d) {time.perf_counter() - t_c!r}")
+    return numbers
+
+
+def profile_xtransformer(device, smi, n_predict=2048):
+    """``--profile-xtransformer``: torch.profiler over the first level's
+    TransformerMatcher.train (its step loop and its predict of the train
+    texts) on phase 14b's data, then over XTransformer.predict of
+    ``n_predict`` test texts, with a ranker trained on [X_feat || that
+    level's embeddings] over the preliminary chain."""
+    import torch
+    import transformers
+    from torch.profiler import ProfilerActivity, profile
+
+    from pecos_tpu_torch.utils import smat_util
+    from pecos_tpu_torch.xmc import Indexer, LabelEmbeddingFactory
+    from pecos_tpu_torch.xmc.xlinear import XLinearModel
+    from pecos_tpu_torch.xmc.xtransformer import MLProblemWithText, TransformerMatcher, XTransformer
+
+    transformers.utils.logging.set_verbosity_error()
+    transformers.utils.logging.disable_progress_bar()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    corpus = load_script("tokenizer_bench").make_corpus(**T2T_CORPUS)
+    tmp = tempfile.TemporaryDirectory()
+    data = xtf_data(tmp.name, corpus)
+    chain = Indexer.gen(LabelEmbeddingFactory.create(data["Y"], data["X"], method="pifa"), device=device, **MR_INDEX)
+    Y0 = data["Y"]
+    for C in reversed(list(chain)[1:]):
+        Y0 = Y0 @ C
+    prob = MLProblemWithText(data["texts"], smat_util.binarized(Y0.tocsr()))
+    tp = xtf_matcher_params(data["vocab"])
+    TransformerMatcher.train(MLProblemWithText(data["texts"][:256], prob.Y[:256]), train_params=xtf_matcher_params(
+        data["vocab"], max_steps=2), device=device)  # first launches
+    sync()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        matcher, _, emb = TransformerMatcher.train(prob, train_params=tp, device=device)
+        sync()
+        wall = time.perf_counter() - t0
+    print(f"xtransformer level 0: {len(matcher.train_losses)} steps, step loop {matcher.train_seconds!r} s, the rest "
+          f"(tokenize, predict {len(data['texts'])} train texts) {wall - matcher.train_seconds!r} s")
+    print_profile(prof, wall, f"xtransformer level-0 train ({len(matcher.train_losses)} steps + predict of the train texts)", smi)
+    del prof
+    ranker = XLinearModel.train(TransformerMatcher.concat_features(data["X"], emb), data["Y"], C=chain, device=device, **XTF_RANKER)
+    xtf = XTransformer(matcher, ranker)
+    kw = dict(beam_size=T2T_BEAM, only_topk=T2T_TOPK)
+    texts, Xt = data["t_texts"][:n_predict], data["Xt"][:n_predict]
+    xtf.predict(texts[:BATCH], X_feat=Xt[:BATCH], **kw)
+    sync()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        xtf.predict(texts, X_feat=Xt, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+    print_profile(prof, wall, f"xtransformer predict ({len(texts)} texts)", smi)
+    tmp.cleanup()
+
+
 def batch_runner(compiled, X, device):
     """Phase 6's compute-only call: one BATCH-query padded batch already on
     the card through compiled.predict_padded."""
@@ -1833,6 +2396,12 @@ def main():
         return 0
     if sys.argv[1:] == ["--profile-text2text"]:
         profile_text2text(device, smi)
+        return 0
+    if sys.argv[1:] == ["--profile-xtransformer"]:
+        profile_xtransformer(device, smi)
+        return 0
+    if sys.argv[1:] == ["--xtransformer"]:
+        run_phase14(device, smi, load_script("tokenizer_bench").make_corpus(**T2T_CORPUS))
         return 0
     if sys.argv[1:2] == ["--f8-cost"] and len(sys.argv) == 3:
         f8_cost(device, smi, os.path.abspath(sys.argv[2]))
@@ -1942,8 +2511,16 @@ def main():
     torch.cuda.empty_cache()
 
     # 13. text2text: Tfidf at the tokenizer benchmark's protocol, then Text2Text trained and served on the card
-    t2t_launches, t2t_k1_err = run_text2text(device, smi, run_tfidf())
+    corpus = run_tfidf()
+    t2t_launches, t2t_k1_err = run_text2text(device, smi, corpus)
     max_err = max(max_err, t2t_k1_err)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14. XR-Transformer: the encoder families, XTransformer train and predict, dist_fine_tune, the reranker
+    xtf = run_phase14(device, smi, corpus)
+    max_err = max(max_err, xtf["k1_err"])
+    timed["xtransformer_ranker"] = xtf["k1_timed"]
 
     print(f"gpu: {smi}")
     pred = timed["predict"]
@@ -1952,7 +2529,8 @@ def main():
         "launches": launches, "max_abs_err": max_err, "ms": pred["ms"], "plain_ms": pred["plain_ms"],
         "bound_ms": pred["bound_ms"], "bound_by": pred["bound_by"], "library_ms": None,
         "share": pred["share"], "composite_ms": pred["composite_ms"],
-        "shapes": {shape: {k: t[k] for k in ("N", "K", "P", "Qn", "ms", "plain_ms", "composite_ms", "bound_ms", "bound_by", "share")}
+        "shapes": {shape: {k: t[k] for k in ("N", "K", "P", "Qn", "ms", "common_N", "common_ms", "plain_ms", "composite_ms",
+                                             "bound_ms", "bound_by", "share") if k in t}
                    for shape, t in timed.items()},
         "launches_by_path": {
             "predict": launches, **{f"wire_{dt}": n for dt, n in wire_launches.items()},
@@ -1960,6 +2538,7 @@ def main():
             "train_golden": golden_launches, "train_predict": train_launches,
             "ann_sparse_build": sparse_build_launches, "ann_sparse_predict": sparse_predict_launches,
             "sharded_predict": sharded_launches, "text2text_predict": t2t_launches,
+            "xtransformer_train": xtf["train_launches"], "xtransformer_predict": xtf["predict_launches"],
         },
     }]
     print(json.dumps({"kernels": kernels}))

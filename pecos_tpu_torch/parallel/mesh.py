@@ -13,6 +13,9 @@ own device, moving the small per-level results between devices itself.
   predict every level's candidate scores are gathered over lp (the JAX
   package's ``lax.pmax``) and the top-k runs once per dp group.
 
+- the whole mesh: an optimizer's state split over every device
+  (``shard_opt_state``, ZeRO stage 1), for the XR-Transformer fine-tune.
+
 A device may appear more than once in a mesh: a list of the CPU repeated is
 the counterpart of jax's virtual CPU devices, and one card repeated runs every
 shard's code path on that card.  On CUDA devices the sparse engine scores
@@ -22,6 +25,7 @@ per shard, or raises.
 
 from __future__ import annotations
 
+import inspect
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -384,3 +388,94 @@ def _solve_label_block(col: List[torch.device], X, y, c, n: int, **solve_kw) -> 
         return out
 
     return solvers.solve_contractions(margins, xt_apply, y.to(home)[None], c.to(home)[None], X.shape[1], **solve_kw)[0]
+
+
+def _shard_axis(shape, n: int) -> Optional[int]:
+    """The first axis of ``shape`` divisible by n (and at least n long), or None."""
+    return next((ax for ax, s in enumerate(shape) if s >= n and s % n == 0), None)
+
+
+class ZeroOptimizer(torch.optim.Optimizer):
+    """ZeRO stage 1 in one process: an optimizer whose state is split over a
+    mesh's devices (the counterpart of the JAX package's optimizer state
+    sharded by ``shard_opt_state``; DeepSpeed ZeRO-1 in the reference).
+
+    The parameters stay whole on their own device (the mesh's first) and carry
+    the summed gradients.  Each parameter is cut along its first axis divisible
+    by the mesh size; slot i of the mesh holds slice i of the parameter and an
+    inner optimizer of the wrapped class whose moments exist for that slice
+    only.  A step hands each slot its gradient slice, runs the inner
+    optimizers, and copies the updated slices back into the parameters.  A
+    parameter with no such axis is held whole by slot 0.  AdamW's update is
+    elementwise, so the result equals one optimizer over the whole parameters.
+
+    The learning rate lives in this optimizer's param groups (an LR scheduler
+    drives it) and is copied to the inner optimizers at each step.
+    """
+
+    def __init__(self, optimizer: torch.optim.Optimizer, mesh: "Mesh"):
+        if any(optimizer.state.values()):
+            raise ValueError("shard_opt_state takes an optimizer that has not stepped yet")
+        if len(optimizer.param_groups) != 1:
+            raise ValueError("shard_opt_state takes an optimizer with one param group")
+        group = optimizer.param_groups[0]
+        super().__init__(group["params"], dict(optimizer.defaults))
+        self.slots = [d for row in mesh.devices for d in row]
+        n = len(self.slots)
+        kw = {k: v for k, v in group.items() if k in inspect.signature(type(optimizer)).parameters and k != "params"}
+        self.layout = []  # per parameter: (axis or None, [shard tensor per slot, or None])
+        slot_params: List[List[torch.Tensor]] = [[] for _ in range(n)]
+        for p in group["params"]:
+            ax = _shard_axis(p.shape, n)
+            if ax is None:
+                shards = [p.detach().clone().to(self.slots[0])] + [None] * (n - 1)
+            else:
+                shards = [c.detach().clone().to(dev) for c, dev in zip(p.detach().chunk(n, dim=ax), self.slots)]
+            for i, s in enumerate(shards):
+                if s is not None:
+                    slot_params[i].append(s)
+            self.layout.append((ax, shards))
+        self.n_sharded = sum(ax is not None for ax, _ in self.layout)
+        self.inner = [type(optimizer)(ps, **kw) if ps else None for ps in slot_params]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("ZeroOptimizer.step takes no closure")
+        group = self.param_groups[0]
+        n = len(self.slots)
+        for p, (ax, shards) in zip(group["params"], self.layout):
+            parts = [p] if ax is None else list(p.chunk(n, dim=ax))
+            grads = [p.grad] if ax is None else list(p.grad.chunk(n, dim=ax)) if p.grad is not None else [None] * n
+            for s, part, g in zip(shards, parts, grads):
+                s.copy_(part)  # the parameter may have been set from outside (a checkpoint restored)
+                s.grad = None if g is None else g.to(s.device)
+        for opt in self.inner:
+            if opt is not None:
+                for g in opt.param_groups:
+                    g["lr"] = group["lr"]
+                opt.step()
+        for p, (ax, shards) in zip(group["params"], self.layout):
+            parts = [p] if ax is None else list(p.chunk(n, dim=ax))
+            for s, part in zip(shards, parts):
+                part.copy_(s)
+                s.grad = None
+        return None
+
+    def moment_bytes(self) -> List[int]:
+        """Bytes of optimizer state tensors held by each mesh slot."""
+        return [
+            0 if opt is None else sum(v.numel() * v.element_size() for st in opt.state.values()
+                                      for v in st.values() if torch.is_tensor(v) and v.dim() > 0)
+            for opt in self.inner
+        ]
+
+
+def shard_opt_state(optimizer: torch.optim.Optimizer, mesh: "Mesh") -> Tuple[ZeroOptimizer, int]:
+    """ZeRO-1 over the whole mesh: ``optimizer`` (not yet stepped) as a
+    :class:`ZeroOptimizer` whose state is split over every device of
+    ``mesh``.  Returns (the sharded optimizer, the number of parameters
+    split), as the JAX package's ``shard_opt_state`` returns the sharded state
+    and the count of sharded leaves."""
+    opt = ZeroOptimizer(optimizer, mesh)
+    return opt, opt.n_sharded

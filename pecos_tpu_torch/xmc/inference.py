@@ -565,6 +565,21 @@ def _fetch_topk(pending, k: int, nr_labels: int) -> smat.csr_matrix:
     return smat_util.csr_from_topk_arrays(labels, vals, nr_labels)
 
 
+def densifies_queries(batch: int, D: int, cap: int, layers: Sequence[DeviceLayer]) -> bool:
+    """Whether sparse queries of ``batch`` rows (``cap`` nonzeros each, D
+    features) are densified on the device for the dense ``layers`` (the rule
+    of the JAX package's ``_sparse_predictor``).
+
+    Dense layers score from the sparse queries by a W-row gather when the
+    densified (batch, D+2) block would be large; for small D the scatter is
+    cheap.  A dense layer too wide for the gather intermediate also forces
+    the scatter."""
+    return any(l.kind == "dense" for l in layers) and (
+        batch * (D + 2) <= (1 << 26)
+        or any(l.kind == "dense" and batch * cap * l.nr_labels > (1 << 28) for l in layers)
+    )
+
+
 class CompiledHierModel:
     """Device-resident hierarchical model: the layers of one chain on one
     torch device, and the batched beam-search predict over them."""
@@ -607,17 +622,8 @@ class CompiledHierModel:
 
     def uses_dense_queries(self, batch: int, cap: int) -> bool:
         """Whether sparse queries of this batch are densified on the device for
-        the dense layers (the rule of the JAX package's ``_sparse_predictor``).
-
-        Dense layers score from the sparse queries by a W-row gather when the
-        densified (batch, D+2) block would be large; for small D the scatter is
-        cheap.  A dense layer too wide for the gather intermediate also forces
-        the scatter."""
-        D = self.nr_features
-        return any(l.kind == "dense" for l in self.layers) and (
-            batch * (D + 2) <= (1 << 26)
-            or any(l.kind == "dense" and batch * cap * l.nr_labels > (1 << 28) for l in self.layers)
-        )
+        the dense layers (``densifies_queries``)."""
+        return densifies_queries(batch, self.nr_features, cap, self.layers)
 
     def predict_padded(
         self,
@@ -925,11 +931,16 @@ def single_layer_predict(
     post_processor: str,
     batch_size: int = 1024,
 ) -> smat.csr_matrix:
-    """One-layer predict from dense queries: candidates are the children of
-    the clusters active in ``csr_codes`` (every cluster if None), and values
-    combine with the codes' values unless ``csr_codes`` is None."""
-    Xd = prepare_queries(X, bias)
-    N = Xd.shape[0]
+    """One-layer predict: candidates are the children of the clusters active
+    in ``csr_codes`` (every cluster if None), and values combine with the
+    codes' values unless ``csr_codes`` is None.
+
+    Sparse X travels as padded (ids, values) a batch at a time: a plabel
+    layer scores it with K1, a dense layer by a W-row gather or, by
+    ``densifies_queries``' rule, a batch densified on the device.  Dense X
+    is one dense block.  (The JAX package densifies every
+    X on the host: 64 GB for XR-Transformer's 20,000 x 800,000 X_cat.)"""
+    N = X.shape[0]
     pp = PostProcessor.get(post_processor)
     dev = layer.device
     if csr_codes is None:
@@ -937,14 +948,26 @@ def single_layer_predict(
     else:
         parents, pvals = (_upload(a, dev) for a in _beam_from_codes(csr_codes, N))
     k = min(only_topk, parents.shape[1] * layer.max_children)
-    pending = [
-        beam_step(
-            _upload(Xd[s : s + batch_size], dev), layer, parents[s : s + batch_size],
-            pvals[s : s + batch_size], k, pp, no_prev=csr_codes is None,
-        )
-        for s in range(0, N, batch_size)
-    ]
-    return _fetch_topk(pending, k, layer.nr_labels)
+    if smat.issparse(X):
+        ids, vals = prepare_queries_padded(X)
+        D = X.shape[1]
+        scatter = densifies_queries(batch_size, D, ids.shape[1], [layer])
+
+        def step(s):
+            qi, qv = _upload(ids[s : s + batch_size], dev), _upload(vals[s : s + batch_size], dev)
+            return beam_step(
+                scatter_queries(qi, qv, D, bias) if scatter else None, layer, parents[s : s + batch_size],
+                pvals[s : s + batch_size], k, pp, no_prev=csr_codes is None, qids=qi, qvals=qv,
+                bias_id=D if bias > 0 else None, bias_val=bias,
+            )
+    else:
+        Xd = prepare_queries(X, bias)
+
+        def step(s):
+            return beam_step(_upload(Xd[s : s + batch_size], dev), layer, parents[s : s + batch_size],
+                             pvals[s : s + batch_size], k, pp, no_prev=csr_codes is None)
+
+    return _fetch_topk([step(s) for s in range(0, N, batch_size)], k, layer.nr_labels)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """The port stands without JAX: every module of pecos_tpu_torch, and
-chip_smoke.py, import with jax, sklearn, sentencepiece and transformers
-blocked, as on the GPU machine, and the host core builds from the port's own
-sources; params files and HNSW folders the JAX package writes load without
-importing it (ROADMAP F6); nothing runs on a CUDA path without a GPU or
-without nvcc, and a host core that does not compile raises."""
+chip_smoke.py, import with jax, flax, msgpack, sklearn, sentencepiece and
+transformers blocked, as on the GPU machine, and the host core builds from
+the port's own sources; params files, HNSW folders and XR-Transformer
+matcher folders (flax_model.msgpack) the JAX package writes load without
+importing it, jax, flax or msgpack (ROADMAP F6); nothing runs on a CUDA path
+without a GPU or without nvcc, and a host core that does not compile raises."""
 
 import os
 import shutil
@@ -19,7 +20,7 @@ from pecos_tpu_torch.utils.torch_util import make_generator, resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 
-_BLOCKED = ("jax", "sklearn", "sentencepiece", "transformers")
+_BLOCKED = ("jax", "flax", "msgpack", "sklearn", "sentencepiece", "transformers")
 
 _IMPORT_ALL = """
 import importlib, os, pkgutil, sys
@@ -30,7 +31,9 @@ names = [m.name for m in pkgutil.walk_packages(pecos_tpu_torch.__path__, "pecos_
 for name in names:
     importlib.import_module(name)
 for name in ("pecos_tpu_torch.core", "pecos_tpu_torch.apps.text2text.predict", "pecos_tpu_torch.utils.mmap_valstore_util",
-             "pecos_tpu_torch.utils.featurization.text.sentencepiece_util", "pecos_tpu_torch.xmc.calibration"):
+             "pecos_tpu_torch.utils.featurization.text.sentencepiece_util", "pecos_tpu_torch.xmc.calibration",
+             *(f"pecos_tpu_torch.xmc.xtransformer.{m}" for m in ("module", "network", "matcher", "model", "train", "predict", "encode")),
+             "pecos_tpu_torch.xmr.reranker.model", "pecos_tpu_torch.distributed.xmc.xtransformer.module"):
     assert name in names, name
 import chip_smoke  # the module only: main() runs under __main__
 leaked = sorted(m for m in sys.modules if m == "pecos_tpu" or m.startswith("pecos_tpu."))
@@ -124,8 +127,9 @@ def _run(args, cwd):
 def test_port_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
-    # every module of the package was walked: ann/, parallel/, distributed/, core/, apps/ and featurization/ included
-    assert int(proc.stdout.strip()) >= 59
+    # every module of the package was walked: ann/, parallel/, distributed/, core/, apps/, featurization/,
+    # xmc/xtransformer/ and xmr/ included
+    assert int(proc.stdout.strip()) >= 72
 
 
 def test_host_core_build_failure_raises(monkeypatch, tmp_path):
@@ -200,6 +204,47 @@ def test_jax_hnsw_folder_loads_without_jax(tmp_path):
     np.save(tmp_path / "ids.npy", model.predict(Q, efS=20, topk=5)[0])
     proc = _run(["-c", _LOAD_JAX_HNSW, str(tmp_path / "hnsw"), str(tmp_path / "Q.npy"), str(tmp_path / "ids.npy")], cwd=REPO)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+# a matcher folder the JAX package saved (encoder/flax_model.msgpack) loads and
+# predicts in the port with jax, flax and msgpack blocked
+_LOAD_JAX_MATCHER = """
+import sys
+import numpy as np
+for blocked in ("jax", "flax", "msgpack"):
+    sys.modules[blocked] = None
+from pecos_tpu_torch.xmc.xtransformer import TransformerMatcher
+m = TransformerMatcher.load(sys.argv[1], device="cpu")
+P, emb = m.predict(["tok1 tok9 tok17", "tok2 tok10 tok18"], only_topk=3)
+np.testing.assert_allclose(emb, np.load(sys.argv[2]), atol=2e-4, rtol=2e-3)
+assert (P.indices.reshape(2, 3)[:, 0] == np.load(sys.argv[3])).all(), P.indices
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "flax", "msgpack", "pecos_tpu"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_jax_matcher_folder_loads_without_jax_flax_msgpack(tmp_path):
+    import numpy as np
+    import scipy.sparse as smat
+
+    from pecos_tpu.xmc.xtransformer import MLProblemWithText, TransformerMatcher as JaxMatcher
+
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"tok{i}" for i in range(24)]
+    (tmp_path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    corpus = [f"tok{i % 8} tok{i % 8 + 8} tok{i % 8 + 16}" for i in range(32)]
+    Y = smat.csr_matrix((np.ones(32, np.float32), (np.arange(32), np.arange(32) % 8)), shape=(32, 8))
+    mc = dict(vocab_size=len(vocab), dim=32, n_layers=1, n_heads=2, hidden_dim=64, max_position_embeddings=64,
+              vocab_file=str(tmp_path / "vocab.txt"))
+    m, _, _ = JaxMatcher.train(MLProblemWithText(corpus, Y), train_params=dict(
+        model_type="distilbert", model_config=mc, truncate_length=16, batch_size=16, max_steps=2, max_active_matching_labels=8))
+    m.save(str(tmp_path / "m"))
+    assert (tmp_path / "m" / "encoder" / "flax_model.msgpack").exists()
+    P, emb = m.predict(["tok1 tok9 tok17", "tok2 tok10 tok18"], only_topk=3)
+    np.save(tmp_path / "emb.npy", emb)
+    np.save(tmp_path / "top1.npy", np.asarray(P.argmax(axis=1)).ravel())
+    proc = _run(["-c", _LOAD_JAX_MATCHER, str(tmp_path / "m"), str(tmp_path / "emb.npy"), str(tmp_path / "top1.npy")], cwd=REPO)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
 
 
 def test_jax_params_skeleton_loads_without_jax(tmp_path):

@@ -67,7 +67,8 @@ def test_mlmodel_predict_matches_jax_and_numpy(layer, pp, with_codes):
 
 @pytest.mark.parametrize("with_codes", [False, True])
 def test_single_layer_predict_plabel_matches_jax(layer, with_codes):
-    """A plabel layer scores dense queries by gather in both packages."""
+    """A plabel layer: the JAX package scores dense queries by gather, the
+    port the sparse queries through K1 (its plain version on the CPU)."""
     W, C, X, codes = layer
     codes = codes if with_codes else None
     port = single_layer_predict(build_device_layer(W, C, layout="plabel", device="cpu"), X, 1.0, codes, 9, "l3-hinge", batch_size=8)
