@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch + CUDA port (pecos_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                      # phases 1-14, the result lines last
+    python3 chip_smoke.py                      # phases 1-15, the result lines last
+    python3 chip_smoke.py --ann-options        # phases 1-2, K1 at phase 15's shapes, then phase 15 on phase 11's data
     python3 chip_smoke.py --xtransformer       # phases 1-2, then phase 14 alone
     python3 chip_smoke.py --profile-xtransformer  # phases 1-2, then torch.profiler over one XR-Transformer level's train and a predict
     python3 chip_smoke.py --profile-text2text  # phases 1-2, then cProfile over one phase-13b member's train and torch.profiler over its predict
-    python3 chip_smoke.py --profile-ann        # phases 1-2, then torch.profiler over phase 11's dense build and sparse predict
+    python3 chip_smoke.py --profile-ann        # phases 1-2, then torch.profiler over phase 11's dense build and sparse predict, and phase 15c's build at 20,000 points
     python3 chip_smoke.py --profile-predict    # phases 1-2, then torch.profiler over phase 6's batch loop and one predict
     python3 chip_smoke.py --f8-cost PARENT     # phases 1-2, then the F8 solve and one phase-13b member's train under PARENT's package and this one's
 
@@ -20,13 +21,16 @@ non-zero:
              sides); and by row id (intersect_scores_rows) as the callers
              call it: parent-layout rows with -1 rows at the predict and
              batch-1 shapes, a permutation of table rows at the HNSW
-             gather-dots shape, lazy selection with empty slots, a query
-             above one hash table's capacity, an odd P, and duplicate
-             query ids.
-4. timing  — K1 by row id at the four shapes of the main paths (predict,
-             batch 1, HNSW gather-dots, lazy selection), the L2 flushed before
-             each launch: kernel, plain version and a torch.searchsorted
-             composite, beside the bound (bytes over 3.35 TB/s).
+             gather-dots shape, lazy selection with empty slots, the
+             options' shapes of phase 15 (the exact rescore after a
+             PQ-guided walk, the Alg-4 prune's distances and its lazy
+             selection), a query above one hash table's capacity, an odd P,
+             and duplicate query ids.
+4. timing  — K1 by row id at the seven shapes of the main paths (predict,
+             batch 1, HNSW gather-dots, lazy selection, rescore, prune
+             distances, prune selection), the L2 flushed before each launch:
+             kernel, plain version and a torch.searchsorted composite,
+             beside the bound (bytes over 3.35 TB/s).
 5. predict — XLinearModel.predict of 8,192 sparse queries through a random
              model of the Wiki-500K geometry (the repo's bench.py model:
              L=524,288, D=262,144, 64 weights per label, 16-way tree, beam 10,
@@ -114,6 +118,18 @@ non-zero:
              split four ways; (d) RankingModel with LoRA (rank 8, q_lin /
              v_lin) on (test text, item) groups of 4: the loss falls, the
              base stays bit-equal, the saved folder scores alike on the CPU.
+15. ann-options and fm — HNSW's two build options on phase 11's data (M=32,
+             efC=100): (a) dense build_pq="true" (scan mode, S=64), recall@10
+             >= 0.99 at efS=100, QPS at efS 50/100/200; (b) dense
+             reverse_alg4=True (eager), recall@10 >= 0.99 at efS=100; (c)
+             sparse reverse_alg4=True through K1, tie-aware recall@10 >= 0.99
+             at efS=100; (d) sparse build_pq="true" (a 128-d count-sketch
+             guide), tie-aware recall@10 >= 0.95 at efS=100; each build's
+             seconds, peak memory and K1 launches (> 0 in (c) and (d)); (e)
+             build (a) saved, loaded and searched again, ids equal; (f) the
+             FM-for-XMC demo's settings trained on the card and on the CPU
+             from one draw: held-out P@1 > 0.5, SIP error <= 1e-4, scores
+             within FM_SCORE_RTOL of the CPU's.
 
 Every K1 launch of a phase's run is counted with the count set to 0 just
 before it.  The line before the last is a JSON object describing each kernel
@@ -190,6 +206,16 @@ K1_CASES = [
     ("hnsw gather-dots", 2048, 256, ANN_SPARSE_P, ANN_SPARSE_P, "hnsw", False),
     ("hnsw lazy-select", 2048, 32, ANN_SPARSE_P, ANN_SPARSE_P, "hnsw", False),
 ]
+# phase 15's sparse HNSW shapes by row id, as K1_ROW_CASES: the exact rescore
+# after a PQ-guided walk (2,048 queries x ceil(1.3 x efC) = 130 candidates),
+# and the Alg-4 reverse prune's distances (a chunk of A_CHUNK = 21,845 rows x
+# 128 candidates: 64 neighbors and 64 arrivals) and one step of its lazy
+# selection (each row's candidate against the cap = 64 rows selected so far)
+K1_OPTION_SHAPES = [
+    ("hnsw rescore", 2048, 130, ANN_SPARSE_P, ANN_SPARSE_P, "perm", "hnsw", False, 100_000),
+    ("hnsw prune dists", 21845, 128, ANN_SPARSE_P, ANN_SPARSE_P, "perm", "hnsw", False, 100_000),
+    ("hnsw prune select", 21845, 64, ANN_SPARSE_P, ANN_SPARSE_P, "select", "hnsw", False, 100_000),
+]
 # K1 by row id: (name, N, K, P, Qn, layout, pad, bias, table rows), as the
 # callers pass rows, then a query above one table's capacity (512), an odd P
 # and duplicate query ids. layout "parents": the rows of 10 beam parents' 16
@@ -202,19 +228,24 @@ K1_ROW_CASES = [
     ("batch-1 by parent rows", 1, 160, 64, 256, "parents", False, True, 4096 * NR_SPLITS),
     ("hnsw gather-dots by id", 2048, 256, ANN_SPARSE_P, ANN_SPARSE_P, "perm", "hnsw", False, 2048 * 256),
     ("hnsw lazy-select by id", 2048, 32, ANN_SPARSE_P, ANN_SPARSE_P, "select", "hnsw", False, 100_000),
+    *[(f"{name} by id", *shape) for name, *shape in K1_OPTION_SHAPES],
     ("above one table", 8, 37, 64, 5000, "perm", True, True, 8 * 37),
     ("odd P", 5, 7, 13, 600, "perm", True, True, 5 * 7),
     ("duplicate query ids", 64, 160, 64, 256, "dups", False, True, 20_000),
 ]
 # the timed shapes: (name, N, K, P, Qn, layout, pad, bias, table rows): the
 # last plabel layer's parent_packed (32,768 parents x 16 children), and the
-# sparse HNSW corpus's 100,000 packed rows
+# sparse HNSW corpus's 100,000 packed rows, by phase 11's and phase 15's callers
 K1_TIMED = [
     ("predict", 1024, 160, 64, 256, "parents", False, True, (L // NR_SPLITS) * NR_SPLITS),
     ("batch-1", 1, 160, 64, 256, "parents", False, True, (L // NR_SPLITS) * NR_SPLITS),
     ("hnsw gather-dots", 2048, 256, ANN_SPARSE_P, ANN_SPARSE_P, "perm", "hnsw", False, 100_000),
     ("hnsw lazy-select", 2048, 32, ANN_SPARSE_P, ANN_SPARSE_P, "select", "hnsw", False, 100_000),
+    *K1_OPTION_SHAPES,
 ]
+# query rows per call of K1's plain version: its (rows, K, P, 64) compare
+# block stays under ~16 GB at K 256, P 96
+PLAIN_ROWS_CHUNK = 2048
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet, at 700 W
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, the same sheet
 L2_FLUSH_BYTES = 256 << 20  # written between timed launches: the 50 MB L2 starts cold
@@ -248,6 +279,22 @@ ANN_PQ_MIN_RECALL = 0.95  # PQ4 recall@10 at efS=200, num_rerank 2 x efS
 ANN_CPU_CHECK, ANN_PQ_CHECK, ANN_PQ_SUBSPACES = 256, 1000, 64
 ANN_MIN_AGREE = 0.99  # (row, rank) ids equal, card against the CPU over one graph
 ANN_PAIRS, ANN_LABELS = 4096, 1024  # PairwiseANN: (query, label) pairs; labels of a random Y
+# phase 15: each option's build on phase 11's data, its recall@10 bar at efS=100:
+# tests/test_hnsw.py's 0.99, and 0.95 for the sketch-guided sparse walk (the
+# JAX package's TrainParams.build_pq docstring: it costs recall on sparse corpora)
+# --profile-ann's sparse reverse_alg4 build: a trace of all 100,000 points
+# did not finish within the script's time limit
+ANN_ALG4_PROFILE_N = 20_000
+ANN_OPT_BUILDS = {  # name -> (dense or sparse, train kwargs, efS values, recall bar)
+    "dense build_pq": ("dense", dict(metric_type="l2", build_pq="true"), ANN_DENSE_EFS, 0.99),
+    "dense reverse_alg4": ("dense", dict(metric_type="l2", reverse_alg4=True), (100,), 0.99),
+    "sparse reverse_alg4": ("sparse", dict(metric_type="ip", data_type="csr", reverse_alg4=True), (100,), 0.99),
+    "sparse build_pq": ("sparse", dict(metric_type="ip", data_type="csr", build_pq="true"), (100,), 0.95),
+}
+# 15f: the FM example's demo settings (examples/fm-for-xmc/fm.py:276-285); the
+# card's held-out scores within FM_SCORE_RTOL x the largest of the CPU's
+FM_DEMO = dict(k=8, epochs=30, l2=2e-5, lr=0.2, batch_size=256, neg_per_pos=8)
+FM_N_VAL, FM_MIN_P1, FM_SIP_ATOL, FM_SCORE_RTOL = 64, 0.5, 1e-4, 1e-4
 # phase 12: a mesh of 4 shards; the distributed train's thread ranks and its
 # P@1 window around the direct train's
 SHARDS, DIST_RANKS, DIST_P1_WINDOW = 4, 2, 0.02
@@ -390,7 +437,7 @@ def make_rows_case(device, N, K, P, Qn, layout, pad, bias, R, seed):
     int64).  Queries as make_k1_case's; the table's rows hold random ids in
     [0, 4*Qn] (the bias id 4*Qn among them), values from a normal, and with
     ``pad`` a zero-valued tail (id 0, or SPARSE_PAD_ID with pad="hnsw");
-    ``layout`` sets the index as K1_ROW_CASES says."""
+    ``layout`` sets the index as K1_ROW_CASES and K1_OPTION_SHAPES say."""
     import torch
 
     D_feat = 4 * Qn
@@ -424,21 +471,33 @@ def make_rows_case(device, N, K, P, Qn, layout, pad, bias, R, seed):
     return q, v, table, rows, ((D_feat, 1.0) if bias else ())
 
 
+def plain_rows(qids, qvals, table, rows, *bias_args):
+    """K1's plain version by row id, PLAIN_ROWS_CHUNK query rows a call
+    (each row's scores depend on its row alone)."""
+    import torch
+
+    from pecos_tpu_torch.ops.intersect import intersect_scores_rows_reference
+
+    C = PLAIN_ROWS_CHUNK
+    return torch.cat([intersect_scores_rows_reference(qids[s : s + C], qvals[s : s + C], table, rows[s : s + C], *bias_args)
+                      for s in range(0, qids.shape[0], C)])
+
+
 def check_k1_rows(device, cases=K1_ROW_CASES):
     """intersect_scores_rows vs its plain version on ``device`` for every
     by-id case; returns the max abs error.  Tolerance as check_k1's (the order
     of the final P-sum and of duplicate ids' sum differ)."""
     import torch
 
-    from pecos_tpu_torch.ops.intersect import intersect_scores_rows, intersect_scores_rows_reference
+    from pecos_tpu_torch.ops.intersect import intersect_scores_rows
 
     worst = 0.0
     for name, N, K, P, Qn, layout, pad, bias, R in cases:
         q, v, table, rows, bias_args = make_rows_case(device, N, K, P, Qn, layout, pad, bias, R, seed=N + K + Qn)
         got = intersect_scores_rows(q, v, table, rows, *bias_args)
-        want = intersect_scores_rows_reference(q, v, table, rows, *bias_args)
+        want = plain_rows(q, v, table, rows, *bias_args)
         t_abs = torch.cat([table[:, :P], table[:, P:].view(torch.float32).abs().view(torch.int32)], dim=1)
-        scale = intersect_scores_rows_reference(q, v.abs(), t_abs, rows, *bias_args).max().item()
+        scale = plain_rows(q, v.abs(), t_abs, rows, *bias_args).max().item()
         if device.type == "cuda":
             torch.cuda.synchronize()
         err = (got - want).abs()
@@ -500,12 +559,12 @@ def time_k1(device, name, N, K, P, Qn, layout, pad, bias, R, iters):
     a sleep of the card; with the bound."""
     import torch
 
-    from pecos_tpu_torch.ops.intersect import intersect_scores_rows, intersect_scores_rows_reference
+    from pecos_tpu_torch.ops.intersect import intersect_scores_rows
 
     q, v, table, rows, bias_args = make_rows_case(device, N, K, P, Qn, layout, pad, bias, R, seed=1)
     fns = {
         "kernel": lambda: intersect_scores_rows(q, v, table, rows, *bias_args),
-        "plain": lambda: intersect_scores_rows_reference(q, v, table, rows, *bias_args),
+        "plain": lambda: plain_rows(q, v, table, rows, *bias_args),
         "composite": lambda: k1_composite(q, v, table, rows, *bias_args),
     }
     outs = {key: fn() for key, fn in fns.items()}  # warm
@@ -1044,6 +1103,27 @@ def check_ann_agreement(ids, want_ids, what, dists=None, want_dists=None, atol=1
     return agree
 
 
+def ann_dense_data(device):
+    """Phase 11a's data: (base, queries, exact top-10 ids, seconds)."""
+    t0 = time.perf_counter()
+    base, queries = load_script("ann_bench_data").make_data(**ANN_DENSE_DATA)
+    true_ids = exact_topk_l2(base, queries, ANN_TOPK, device)
+    return base, queries, true_ids, time.perf_counter() - t0
+
+
+def ann_sparse_data():
+    """Phase 11c's data, rows with sorted ids: (X, Q, ground-truth ids,
+    ground-truth distances, seconds)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="pecos_sparse_ann_") as folder:
+        load_script("sparse_hnsw_bench").gen(folder, **ANN_SPARSE_DATA)
+        X, Q = (smat.load_npz(os.path.join(folder, f"sparse_{w}.npz")).tocsr() for w in ("base", "queries"))
+        gt_i, gt_d = (np.load(os.path.join(folder, f"sparse_gt_{w}.npy")) for w in ("i", "d"))
+    X.sort_indices()
+    Q.sort_indices()
+    return X, Q, gt_i, gt_d, time.perf_counter() - t0
+
+
 def run_ann_dense(device, smi):
     """Phase 11a: synthetic SIFT at 100K, built and searched on the card;
     returns (model, base, queries, true top-10, numbers)."""
@@ -1052,10 +1132,7 @@ def run_ann_dense(device, smi):
     from pecos_tpu_torch.ann import HNSW
     from pecos_tpu_torch.ann.hnsw.graph import read_flag
 
-    t0 = time.perf_counter()
-    base, queries = load_script("ann_bench_data").make_data(**ANN_DENSE_DATA)
-    true_ids = exact_topk_l2(base, queries, ANN_TOPK, device)
-    data_s = time.perf_counter() - t0
+    base, queries, true_ids, data_s = ann_dense_data(device)
     gc.collect()
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
@@ -1172,21 +1249,15 @@ def run_ann_pairwise(base, device, smi):
 
 def run_ann_sparse(device, smi):
     """Phase 11c: the clustered sparse corpus, built and searched on the card
-    through K1; returns (K1 launches of the build, of the efS=100 predict, numbers)."""
+    through K1; returns (K1 launches of the build, of the efS=100 predict,
+    numbers, (X, Q, ground-truth ids, ground-truth distances))."""
     import torch
 
     from pecos_tpu_torch.ann import HNSW
     from pecos_tpu_torch.ann.hnsw.graph import read_flag
     from pecos_tpu_torch.ops.intersect import intersect_scores
 
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="pecos_sparse_ann_") as folder:
-        load_script("sparse_hnsw_bench").gen(folder, **ANN_SPARSE_DATA)
-        X, Q = (smat.load_npz(os.path.join(folder, f"sparse_{w}.npz")).tocsr() for w in ("base", "queries"))
-        gt_i, gt_d = (np.load(os.path.join(folder, f"sparse_gt_{w}.npy")) for w in ("i", "d"))
-    X.sort_indices()
-    Q.sort_indices()
-    data_s = time.perf_counter() - t0
+    X, Q, gt_i, gt_d, data_s = ann_sparse_data()
     gc.collect()
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
@@ -1227,7 +1298,7 @@ def run_ann_sparse(device, smi):
             raise RuntimeError(f"ann sparse predict efS={efS}: K1 was not launched")
     if numbers["efS100"]["recall"] < ANN_MIN_RECALL:
         raise RuntimeError(f"ann sparse: recall@10 {numbers['efS100']['recall']!r} < {ANN_MIN_RECALL} at efS=100")
-    return build_launches, predict_launches, numbers
+    return build_launches, predict_launches, numbers, (X, Q, gt_i, gt_d)
 
 
 def run_dryrun(smi):
@@ -1675,7 +1746,9 @@ def print_profile(prof, wall_s, what, smi, top=14):
 
 def profile_ann(device, smi):
     """``--profile-ann``: torch.profiler over one dense build (phase 11a's
-    data) and one sparse predict at efS=100 (phase 11c's)."""
+    data), one sparse predict at efS=100 (phase 11c's) and one sparse
+    ``reverse_alg4`` build (phase 15c's) on the first ANN_ALG4_PROFILE_N
+    rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1703,6 +1776,16 @@ def profile_ann(device, smi):
         model.predict(Q, efS=100, topk=ANN_TOPK)
         wall = time.perf_counter() - t0
     print_profile(prof, wall, "ann sparse predict efS=100", smi)
+    del prof, model
+    kw = ANN_OPT_BUILDS["sparse reverse_alg4"][1]
+    Xc = X[:ANN_ALG4_PROFILE_N]
+    Xc.sort_indices()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        HNSW.train(Xc, device=device, **ANN_BUILD, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_profile(prof, wall, f"ann sparse build {kw}, {Xc.shape[0]} points", smi)
 
 
 def t2t_member_inputs(n_test):
@@ -2362,6 +2445,140 @@ def profile_predict(device, smi, iters=20):
     print_profile(prof, wall, f"predict end to end ({N_QUERIES} queries)", smi)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: HNSW's build options and the FM example
+# ---------------------------------------------------------------------------
+
+
+def ann_option_build(X, what, device, smi, **kw):
+    """One of phase 15's builds on ``device``: (model, numbers) with its
+    seconds, peak memory above the start and K1 launches."""
+    from pecos_tpu_torch.ann import HNSW
+    from pecos_tpu_torch.ops.intersect import intersect_scores
+
+    gc.collect()
+    mem0 = peak_reset()
+    intersect_scores.launches = 0
+    t0 = time.perf_counter()
+    model = HNSW.train(X, device=device, **ANN_BUILD, **kw)
+    sync()
+    secs = time.perf_counter() - t0
+    launches = intersect_scores.launches
+    peak = peak_bytes() - mem0
+    print(f"ann options {what} build [{smi}]: {kw}, M={ANN_BUILD['M']} efC={ANN_BUILD['efC']}, {X.shape[0]} points: "
+          f"{secs!r} s, peak device memory above the start {peak} bytes, K1 launches {launches}")
+    return model, {"build_s": secs, "peak_bytes": peak, "build_launches": launches}
+
+
+def ann_option_recall(model, what, queries, recall, efs, bar, smi):
+    """recall(ids) of one build's search at each efS (QPS best of 2, K1
+    launches a search); raises below ``bar`` at efS=100."""
+    from pecos_tpu_torch.ops.intersect import intersect_scores
+
+    numbers, reps = {}, 2
+    for efS in efs:
+        intersect_scores.launches = 0
+        (ids, dists), secs = best_time(lambda: model.predict(queries, efS=efS, topk=ANN_TOPK), reps)
+        launches = intersect_scores.launches // reps
+        if ids.shape != (queries.shape[0], ANN_TOPK) or ids.min() < 0 or not np.isfinite(dists).all():
+            raise RuntimeError(f"ann options {what} efS={efS}: ids {ids.shape} from {ids.min()}, or distances not finite")
+        rec = recall(ids)
+        numbers[f"efS{efS}"] = {"recall": rec, "qps": queries.shape[0] / secs, "launches": launches}
+        print(f"ann options {what} predict efS={efS} [{smi}]: recall@{ANN_TOPK} {rec!r}, {queries.shape[0] / secs!r} QPS "
+              f"(best of 2, {secs!r} s), K1 launches {launches}")
+    if numbers["efS100"]["recall"] < bar:
+        raise RuntimeError(f"ann options {what}: recall@{ANN_TOPK} {numbers['efS100']['recall']!r} < {bar} at efS=100")
+    return numbers
+
+
+def run_fm(device, smi):
+    """Phase 15f: the FM example's demo settings, one CPU draw of the
+    starting parameters fitted on ``device`` and on the CPU; returns numbers."""
+    import contextlib
+    import io
+
+    from pecos_tpu_torch.examples import fm_for_xmc as fm
+
+    Xq, Y, Xp, _ = fm.synthetic_pairs()
+    params = fm.FMParams(seed=SEED, **FM_DEMO)
+    theta = fm.FactorizationMachine.init_params(Xq.shape[1], Xp.shape[1], params, device="cpu")
+    fit_args = (Xq[:-FM_N_VAL], Y[:-FM_N_VAL], Xp)
+    val = dict(Xq_val=Xq[-FM_N_VAL:], Y_val=Y[-FM_N_VAL:])
+    out, secs, log = {}, {}, {}
+    for where, th in (("card", {n: v.to(device) for n, v in theta.items()}), ("cpu", theta)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out[where] = fm.FactorizationMachine.fit(*fit_args, th, params, **val)
+        sync()
+        secs[where], log[where] = time.perf_counter() - t0, buf.getvalue().splitlines()
+    S, S_cpu = (out[w].score(Xq[-FM_N_VAL:], Xp) for w in ("card", "cpu"))
+    truth = np.asarray(Y[-FM_N_VAL:].todense())
+    p1 = float(np.mean(truth[np.arange(FM_N_VAL), S.argmax(axis=1)] > 0))
+    Eq, Ep = out["card"].to_sip_embeddings(Xq[-FM_N_VAL:], Xp)
+    sip_err = float(np.abs(Eq @ Ep.T - S).max())
+    err, scale = float(np.abs(S - S_cpu).max()), float(np.abs(S_cpu).max())
+    print(f"fm [{smi}]: {FM_DEMO}, {Xq.shape[0] - FM_N_VAL} train / {FM_N_VAL} held-out queries x {Xp.shape[0]} products: "
+          f"card {secs['card']!r} s ({len(log['card'])} epochs; {log['card'][-1]}), CPU {secs['cpu']!r} s "
+          f"({len(log['cpu'])} epochs); held-out P@1 {p1!r}, SIP max |error| {sip_err!r}, "
+          f"card against CPU scores max |diff| {err!r} (largest |score| {scale!r})")
+    if not p1 > FM_MIN_P1 or not sip_err <= FM_SIP_ATOL or not err <= FM_SCORE_RTOL * scale:
+        raise RuntimeError(f"fm: P@1 {p1!r} (> {FM_MIN_P1}), SIP error {sip_err!r} (<= {FM_SIP_ATOL}), card against "
+                           f"CPU {err!r} (<= {FM_SCORE_RTOL} x {scale!r}) out of bounds")
+    return {"fit_s": secs["card"], "cpu_fit_s": secs["cpu"], "p1": p1, "sip_err": sip_err, "cpu_err": err}
+
+
+def run_phase15(device, smi, dense, sparse):
+    """Phase 15 (a)-(f) on phase 11's data: dense = (base, queries, exact
+    top-10 ids), sparse = (X, Q, ground-truth distances); returns numbers."""
+    import torch
+
+    from pecos_tpu_torch.ann import HNSW
+
+    t_start = time.perf_counter()
+    base, queries, true_ids = dense
+    X, Q, gt_d = sparse
+    data = {"dense": (base, queries, lambda ids: recall_at(ids, true_ids)),
+            "sparse": (X, Q, lambda ids: sparse_tie_recall(ids, X, Q, gt_d))}
+    numbers = {}
+    for what, (kind, kw, efs, bar) in ANN_OPT_BUILDS.items():
+        feats, qs, recall = data[kind]
+        model, numbers[what] = ann_option_build(feats, what, device, smi, **kw)
+        if kind == "sparse" and numbers[what]["build_launches"] <= 0:
+            raise RuntimeError(f"ann options {what} build: K1 was not launched")
+        numbers[what].update(ann_option_recall(model, what, qs, recall, efs, bar, smi))
+        if what == "dense build_pq":  # (e)
+            Qc, kw_c = qs[:ANN_CPU_CHECK], dict(efS=100, topk=ANN_TOPK)
+            ids = model.predict(Qc, **kw_c)[0]
+            with tempfile.TemporaryDirectory(prefix="pecos_hnsw_opt_") as folder:
+                model.save(folder)
+                again = HNSW.load(folder, device=device).predict(Qc, **kw_c)[0]
+            print(f"ann options {what}: saved, loaded and searched again on {ANN_CPU_CHECK} queries, ids equal "
+                  f"{bool(np.array_equal(again, ids))}")
+            if not np.array_equal(again, ids):
+                raise RuntimeError(f"ann options {what}: the loaded index gave other ids")
+        del model
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    numbers["fm"] = run_fm(device, smi)
+    print(f"ann options and fm phase 15 [{smi}]: {time.perf_counter() - t_start!r} s")
+    return numbers
+
+
+def time_k1_shapes(device, smi, shapes):
+    """Phase 4: K1 timed at each of ``shapes`` (K1_TIMED's form), one line each; returns name -> numbers."""
+    timed = {}
+    for shape, N, K, P_, Qn, layout, pad, bias, R in shapes:
+        t = time_k1(device, shape, N, K, P_, Qn, layout, pad, bias, R, iters=10 if N * K > 200_000 else 20)
+        timed[shape] = t
+        print(f"K1 timing {shape} (by id, N={N} K={K} P={P_} Qn={Qn}, table of {R} rows, L2 flushed, median of "
+              f"CUDA events) [{smi}]: kernel {t['ms']!r} ms, bound {t['bound_ms']!r} ms ({t['bound_by']}, "
+              f"{t['bytes']} bytes), share of bound {t['share']!r}; plain {t['plain_ms']!r} ms, "
+              f"searchsorted composite {t['composite_ms']!r} ms")
+    return timed
+
+
 def main():
     import torch
 
@@ -2406,19 +2623,19 @@ def main():
     if sys.argv[1:2] == ["--f8-cost"] and len(sys.argv) == 3:
         f8_cost(device, smi, os.path.abspath(sys.argv[2]))
         return 0
+    if sys.argv[1:] == ["--ann-options"]:
+        check_k1_rows(device, [(f"{name} by id", *shape) for name, *shape in K1_OPTION_SHAPES])
+        time_k1_shapes(device, smi, K1_OPTION_SHAPES)
+        base, queries, true_ids, _ = ann_dense_data(device)
+        X, Q, _, gt_d, _ = ann_sparse_data()
+        run_phase15(device, smi, (base, queries, true_ids), (X, Q, gt_d))
+        return 0
 
     # 3. K1 against its plain version: over gathered blocks, then by row id
     max_err = max(check_k1(device), check_k1_rows(device))
 
     # 4. K1 timing by row id, at the main paths' shapes
-    timed = {}
-    for shape, N, K, P_, Qn, layout, pad, bias, R in K1_TIMED:
-        t = time_k1(device, shape, N, K, P_, Qn, layout, pad, bias, R, iters=10 if N * K > 200_000 else 20)
-        timed[shape] = t
-        print(f"K1 timing {shape} (by id, N={N} K={K} P={P_} Qn={Qn}, table of {R} rows, L2 flushed, median of "
-              f"CUDA events) [{smi}]: kernel {t['ms']!r} ms, bound {t['bound_ms']!r} ms ({t['bound_by']}, "
-              f"{t['bytes']} bytes), share of bound {t['share']!r}; plain {t['plain_ms']!r} ms, "
-              f"searchsorted composite {t['composite_ms']!r} ms")
+    timed = time_k1_shapes(device, smi, K1_TIMED)
     k_ms = timed["predict"]["ms"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -2490,14 +2707,14 @@ def main():
     torch.cuda.empty_cache()
 
     # 11. ANN: dense HNSW build and search, PQ4 on its graph, sparse HNSW through K1, PairwiseANN
+    # (the data stays on the host for phase 15)
     hnsw, base, queries, true_ids, _ = run_ann_dense(device, smi)
     run_ann_pq(hnsw, queries, true_ids, smi)
-    del hnsw, queries, true_ids
+    del hnsw
     gc.collect()
     torch.cuda.empty_cache()
-    sparse_build_launches, sparse_predict_launches, _ = run_ann_sparse(device, smi)
+    sparse_build_launches, sparse_predict_launches, _, (X_ann, Q_ann, _, gt_d_ann) = run_ann_sparse(device, smi)
     run_ann_pairwise(base, device, smi)
-    del base
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2521,6 +2738,11 @@ def main():
     xtf = run_phase14(device, smi, corpus)
     max_err = max(max_err, xtf["k1_err"])
     timed["xtransformer_ranker"] = xtf["k1_timed"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15. HNSW's build options on phase 11's data, and the FM example
+    opt = run_phase15(device, smi, (base, queries, true_ids), (X_ann, Q_ann, gt_d_ann))
 
     print(f"gpu: {smi}")
     pred = timed["predict"]
@@ -2539,6 +2761,8 @@ def main():
             "ann_sparse_build": sparse_build_launches, "ann_sparse_predict": sparse_predict_launches,
             "sharded_predict": sharded_launches, "text2text_predict": t2t_launches,
             "xtransformer_train": xtf["train_launches"], "xtransformer_predict": xtf["predict_launches"],
+            **{f"ann_options_{what.replace(' ', '_')}_build": opt[what]["build_launches"] for what in ANN_OPT_BUILDS},
+            **{f"ann_options_{what.replace(' ', '_')}_predict": opt[what]["efS100"]["launches"] for what in ANN_OPT_BUILDS},
         },
     }]
     print(json.dumps({"kernels": kernels}))

@@ -24,19 +24,19 @@ upcast before its products, which makes them exact in float32 as JAX's
 ``preferred_element_type=float32`` does, while the squared norms are summed in
 bfloat16 as JAX sums them.
 
-Not ported: the PQ-guided build's packed-descriptor helpers
-(``scatter_set_rows_packed_d``, ``reverse_merge_closest_packed``,
-``reverse_merge_chunk_packed``, ``pack_rows_codes``,
-``scatter_set_rows_packed``, ``scatter_prune_rows_packed``), the host-grouped
-reverse-edge prunes of ``reverse_alg4`` (``scatter_prune_rows``,
-``scatter_prune_rows_alg4``, ``_sparse_cross_dots``) and
-``batch_greedy_descent_stack``, which nothing calls.
+The PQ-guided build keeps a packed neighbor-code array ``desc`` (N, cap*S)
+uint8 beside level 0 (see ``pack_neighbor_codes``): the row writers
+``scatter_set_rows_d``, ``reverse_merge_closest``, ``reverse_merge_chunk`` and
+``scatter_prune_rows`` take an optional ``packed=(desc, codes)`` and re-pack
+the rows they write, which is what the JAX package's ``*_packed`` twins do.
+
+Not ported: ``batch_greedy_descent_stack``, which nothing calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import scipy.sparse as smat
@@ -334,14 +334,14 @@ def batch_search_level_pq(
 
 
 def pack_neighbor_codes(neighbors: torch.Tensor, codes: torch.Tensor, chunk: int = 1 << 16) -> torch.Tensor:
-    """(N, M) x (N, S) -> (N, M*S) uint8: each node's neighbors' PQ codes
+    """(n, M) x (N, S) -> (n, M*S) uint8: each row's neighbors' PQ codes
     beside its adjacency row, so one row gather scores all M neighbors.  -1
     slots hold node 0's codes; users mask them by the id's sign.  Built in
-    row chunks so no (N, M, S) int64 index exists at once."""
-    N, M = neighbors.shape
-    S = codes.shape[1]
-    out = torch.empty((N, M * S), dtype=torch.uint8, device=neighbors.device)
-    for s in range(0, N, chunk):
+    row chunks so no (n, M, S) int64 index exists at once."""
+    n, M = neighbors.shape
+    N, S = codes.shape
+    out = torch.empty((n, M * S), dtype=torch.uint8, device=neighbors.device)
+    for s in range(0, n, chunk):
         nb = neighbors[s : s + chunk].long().clamp(0, N - 1)
         out[s : s + chunk] = codes[nb].reshape(nb.shape[0], M * S)
     return out
@@ -514,17 +514,21 @@ def batch_select_from_search(
     if isinstance(feats, SparseFeats):
         if sketch is None:
             return _select_sparse_lazy(feats, ids, dists, M=M, metric=metric)
-        F = sketch[ids.clamp(0, sketch.shape[0] - 1)]
+        cross = _dense_cross(sketch[ids.clamp(0, sketch.shape[0] - 1)], metric)
     else:
-        F = feats[ids.clamp(0, feats.shape[0] - 1)]  # (B, E, D)
+        cross = _dense_cross(feats[ids.clamp(0, feats.shape[0] - 1)], metric)
+    return batch_select_neighbors(ids, dists, cross, M=M)
+
+
+def _dense_cross(F: torch.Tensor, metric: str) -> torch.Tensor:
+    """Distances among gathered dense rows: F (B, E, D) -> (B, E, E), the
+    products in float32 (a bfloat16 copy is upcast first)."""
     Ff = F.float()
     dots = torch.bmm(Ff, Ff.transpose(1, 2))
     if metric == "ip":
-        cross = 1.0 - dots
-    else:
-        nn = (F * F).sum(-1)
-        cross = nn[:, :, None] + nn[:, None, :] - 2.0 * dots
-    return batch_select_neighbors(ids, dists, cross, M=M)
+        return 1.0 - dots
+    nn = (F * F).sum(-1)
+    return nn[:, :, None] + nn[:, None, :] - 2.0 * dots
 
 
 def refine_union_candidates(
@@ -551,14 +555,23 @@ def refine_union_candidates(
     return all_ids, all_d
 
 
-def _set_rows_(rows: torch.Tensor, *pairs: Tuple[torch.Tensor, torch.Tensor]) -> None:
+Packed = Optional[Tuple[torch.Tensor, torch.Tensor]]  # (desc (N, cap*S) uint8, codes (N, S) uint8)
+
+
+def _set_rows_(rows: torch.Tensor, *pairs: Tuple[torch.Tensor, torch.Tensor], packed: Packed = None) -> None:
     """arr[rows] = vals in place for every (arr, vals) pair; rows outside arr
-    (the >= N pads of a batch) are dropped, as JAX's ``mode="drop"``."""
+    (the >= N pads of a batch) are dropped, as JAX's ``mode="drop"``.  With
+    ``packed``, the desc rows are re-packed from the first pair's new ids."""
     N = pairs[0][0].shape[0]
     keep = (rows >= 0) & (rows < N)
     r = rows[keep].long()
-    for arr, vals in pairs:
-        arr.index_copy_(0, r, vals[keep].to(arr.dtype))
+    arrs, vals = [a for a, _ in pairs], [v[keep] for _, v in pairs]
+    if packed is not None:
+        desc, codes = packed
+        arrs.append(desc)
+        vals.append(pack_neighbor_codes(vals[0], codes))
+    for arr, v in zip(arrs, vals):
+        arr.index_copy_(0, r, v.to(arr.dtype))
 
 
 def _pad_cols(x: torch.Tensor, width: int, value) -> torch.Tensor:
@@ -567,17 +580,27 @@ def _pad_cols(x: torch.Tensor, width: int, value) -> torch.Tensor:
     return torch.cat([x, torch.full((x.shape[0], width - x.shape[1]), value, dtype=x.dtype, device=x.device)], dim=1)
 
 
+def scatter_set_rows(neighbors: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor, *, packed: Packed = None) -> torch.Tensor:
+    """Replace whole rows of an adjacency in place (pads >= N dropped), and
+    with ``packed`` their desc rows.  Returns neighbors."""
+    _set_rows_(rows, (neighbors, vals), packed=packed)
+    return neighbors
+
+
 def scatter_set_rows_d(
     neighbors: torch.Tensor,  # (N, cap) int32 adjacency
     nbr_dists: torch.Tensor,  # (N, cap) float32 distance co-array
     rows: torch.Tensor,  # (B,) row ids; pads >= N are dropped
     ids: torch.Tensor,  # (B, M) new neighbor ids, -1 padded, M <= cap
     d: torch.Tensor,  # (B, M) their distances to the row's node
+    *,
+    packed: Packed = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Replace whole rows of the adjacency and its distance co-array, in
-    place (JAX donates the arrays; here they are updated).  Returns both."""
+    place (JAX donates the arrays; here they are updated), and with
+    ``packed`` their desc rows.  Returns (neighbors, nbr_dists)."""
     cap = neighbors.shape[1]
-    _set_rows_(rows, (neighbors, _pad_cols(ids, cap, PAD)), (nbr_dists, _pad_cols(d, cap, INF)))
+    _set_rows_(rows, (neighbors, _pad_cols(ids, cap, PAD)), (nbr_dists, _pad_cols(d, cap, INF)), packed=packed)
     return neighbors, nbr_dists
 
 
@@ -633,11 +656,14 @@ def reverse_merge_closest(
     src_ids: torch.Tensor,  # (B,) inserted node ids; pads >= N
     sel_ids: torch.Tensor,  # (B, M) forward selections, -1 padded
     sel_dists: torch.Tensor,  # (B, M)
+    *,
+    packed: Packed = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge the reverse edges of one batch's selections into the adjacency,
-    keep-closest, in place.  Returns (neighbors, nbr_dists)."""
+    keep-closest, in place (and the desc rows with ``packed``).  Returns
+    (neighbors, nbr_dists)."""
     rows, ids, d = _reverse_merge_core(neighbors, nbr_dists, src_ids, sel_ids, sel_dists)
-    _set_rows_(rows, (neighbors, ids), (nbr_dists, d))
+    _set_rows_(rows, (neighbors, ids), (nbr_dists, d), packed=packed)
     return neighbors, nbr_dists
 
 
@@ -649,13 +675,58 @@ def reverse_merge_chunk(
     s0: int,  # chunk offset
     *,
     B: int,
+    packed: Packed = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """reverse_merge_closest for the forward edges of rows [s0, s0+B).  As
     in the JAX package, a start past N_CEIL - B clamps the slice (as
     ``lax.dynamic_slice`` does) but not the source ids s0 + arange(B)."""
     src = torch.arange(int(s0), int(s0) + B, device=new_ids.device)
     at = max(0, min(int(s0), new_ids.shape[0] - B))
-    return reverse_merge_closest(neighbors, nbr_dists, src, new_ids[at : at + B], new_d[at : at + B])
+    return reverse_merge_closest(neighbors, nbr_dists, src, new_ids[at : at + B], new_d[at : at + B], packed=packed)
+
+
+def _dedup_first(cand: torch.Tensor) -> torch.Tensor:
+    """cand (A, E) with every repeat of an id after its first place set to -1."""
+    srt, first = torch.sort(torch.where(cand < 0, _BIG_ID, cand), dim=1, stable=True)
+    dup = torch.zeros_like(cand, dtype=torch.bool).scatter_(1, first, _after_repeat(srt) & (srt < _BIG_ID))
+    return torch.where(dup, PAD, cand)
+
+
+def scatter_prune_rows(
+    neighbors: torch.Tensor,  # (N, cap) int32 adjacency, -1 padded
+    feats: Feats,
+    rows: torch.Tensor,  # (A,) affected rows; pads N are dropped
+    new_cands: torch.Tensor,  # (A, K) new candidate ids, -1 padded
+    *,
+    metric: str,
+    alg4: bool = False,
+    packed: Packed = None,
+) -> torch.Tensor:
+    """Merge new candidates into each affected row and prune it to cap, in
+    place: the host-grouped reverse-edge update (the JAX package's
+    ``scatter_prune_rows``, ``scatter_prune_rows_alg4`` and, with ``packed``,
+    ``scatter_prune_rows_packed``).  A row's existing neighbors come before
+    its arrivals, so a repeated id keeps its first place; the distances to
+    the row's node come from one gather (K1 for sparse features).
+    Keep-closest keeps the cap closest, ties to the lower place; ``alg4``
+    sorts by distance and runs Alg. 4: over the full cross matrix for dense
+    features, through the lazy K1 selection for sparse ones (the same
+    selection, E*cap work instead of E^2).  Returns neighbors."""
+    N, cap = neighbors.shape
+    safe_rows = rows.long().clamp(0, N - 1)
+    cand = _dedup_first(torch.cat([neighbors[safe_rows].long(), new_cands.long()], dim=1))  # (A, cap+K)
+    d = torch.where(cand >= 0, gather_dist(feats[safe_rows], feats, cand, metric), INF)
+    if alg4:
+        d, cand = _sort_take(d, cand)
+        if isinstance(feats, SparseFeats):
+            pruned, _ = _select_sparse_lazy(feats, cand, d, M=cap, metric=metric)
+        else:
+            pruned, _ = batch_select_neighbors(cand, d, _dense_cross(feats[cand.clamp(0, N - 1)], metric), M=cap)
+    else:
+        top, pruned = _sort_take(d, cand, k=cap)
+        pruned = torch.where(top < INF * 0.5, pruned, PAD)
+    _set_rows_(rows, (neighbors, pruned), packed=packed)
+    return neighbors
 
 
 def exact_rescore(

@@ -16,6 +16,12 @@ frozen graph (or, with ``refine_fraction`` < 1, re-links the earliest
 inserted nodes in place).  The JAX package runs those sweeps as ``lax.scan``
 kernels; here they are Python loops with the same order and the same frozen
 and carried arrays.  Its all-pad batches, which write nothing, are skipped.
+
+Two options change the build (see ``_GraphBuild``): ``reverse_alg4`` prunes
+reverse edges with Alg. 4 on host-grouped destinations (eager mode only), and
+``build_pq="true"`` walks level 0 on packed 4-bit PQ codes and rescores the
+result exactly.  Sparse features with both raise ``ValueError``: the JAX
+package's Alg-4 prune of the packed build takes dense rows only.
 """
 
 from __future__ import annotations
@@ -37,23 +43,28 @@ from pecos_tpu_torch.utils import smat_util
 from pecos_tpu_torch.utils.torch_util import DeviceLike, resolve_device
 from .graph import (
     INF,
+    PAD,
     DeviceGraph,
     SparseFeats,
+    _sort_take,
     batch_greedy_descent_multi,
     batch_search_level,
     batch_search_level_pq,
     batch_search_level_pq_packed,
     batch_select_from_search,
     build_sparse_feats,
+    exact_rescore,
     gather_dist,
     pack_neighbor_codes,
     refine_union_candidates,
     reverse_merge_chunk,
     reverse_merge_closest,
+    scatter_prune_rows,
+    scatter_set_rows,
     scatter_set_rows_d,
     to_device,
 )
-from .pq import ProductQuantizer4Bits, build_lut, train_pq4
+from .pq import ProductQuantizer4Bits, build_lut, build_lut_device, train_pq4
 
 LOGGER = logging.getLogger(__name__)
 
@@ -70,10 +81,40 @@ def _hash_sketch(X: smat.csr_matrix, sk: int) -> np.ndarray:
     return flat.reshape(X.shape[0], sk).astype(np.float32)
 
 
+def _group_edges(dst: np.ndarray, src: np.ndarray, k_pad: int):
+    """src -> dst edges grouped by destination: a list of (rows (A,) int32
+    unique destinations, cands (A, k_pad) int32 their sources, -1 padded).
+    A node with more than k_pad arrivals gets follow-up groups, applied in
+    turn (keep-closest pruning of the chunks in turn equals one pruning of
+    their union)."""
+    order = np.argsort(dst, kind="stable")
+    dst_s, src_s = dst[order], src[order]
+    uniq, start, counts = np.unique(dst_s, return_index=True, return_counts=True)
+    rank = np.arange(len(dst_s)) - np.repeat(start, counts)
+    owner = np.repeat(np.arange(len(uniq)), counts)  # each sorted edge's place in uniq
+    out = []
+    for chunk in range(-(-int(counts.max(initial=0)) // k_pad)):
+        sel = counts > chunk * k_pad
+        local = np.cumsum(sel) - 1  # place in uniq -> place in this group's rows
+        in_chunk = (rank >= chunk * k_pad) & (rank < (chunk + 1) * k_pad)
+        cands = np.full((int(sel.sum()), k_pad), -1, np.int32)
+        cands[local[owner[in_chunk]], rank[in_chunk] - chunk * k_pad] = src_s[in_chunk]
+        out.append((uniq[sel].astype(np.int32), cands))
+    return out
+
+
 def _padded(idx: np.ndarray, width: int, fill: int) -> np.ndarray:
     """idx (n <= width,) as int64, filled to width with ``fill``."""
     out = np.full(width, fill, np.int64)
     out[: len(idx)] = idx
+    return out
+
+
+def _pad_rows(vals: np.ndarray, n: int, cap: int) -> np.ndarray:
+    """vals (b <= n, k) as an (n, cap) int32 block: its first cap columns, -1 padded."""
+    out = np.full((n, cap), -1, np.int32)
+    k = min(cap, vals.shape[1])
+    out[: vals.shape[0], :k] = vals[:, :k]
     return out
 
 
@@ -83,8 +124,25 @@ def _bucket_pow2(n: int, lo: int, hi: int) -> int:
 
 class _GraphBuild:
     """One HNSW build on a device: the search copy of the features, the
-    level-0 and upper adjacencies with their distance co-arrays, and the
-    insertion and refine sweeps that fill them."""
+    level-0 and upper adjacencies, and the insertion and refine sweeps that
+    fill them.
+
+    Fast path (keep-closest reverse edges, the default): a distance co-array
+    rides beside every adjacency and the reverse edges merge on the device.
+    ``reverse_alg4``: no co-arrays; each batch's forward selections come to
+    the host, are grouped by destination (``_group_edges``), and every
+    destination row is pruned by Alg. 4 over its old and new neighbors
+    (``scatter_prune_rows``).
+
+    ``build_pq="true"``: level-0 searches walk 4-bit PQ codes of a guide (the
+    search copy of dense features, a count-sketch of sparse ones), scoring a
+    popped node's neighbors from one packed row of ``desc`` (N, maxM0 * S),
+    on a beam ``build_pq_ef_mult`` wider; the result is rescored exactly
+    before selection.  Every write to level 0 re-packs the rows it writes."""
+
+    # device bytes the packed neighbor codes may take (the JAX package's budget)
+    BUILD_PQ_HBM_BUDGET = 4608 << 20
+    K_PAD = 64  # reverse-edge arrivals per node per prune
 
     def __init__(self, feats, use_sparse: bool, params, levels: np.ndarray, device: torch.device):
         self.params = params
@@ -98,6 +156,16 @@ class _GraphBuild:
         self.efC = params.efC
         self.ef_ins = params.build_efC_insert or params.efC
         self.entry = 0
+        self.fast = not params.reverse_alg4
+        # the PQ guide's subspaces: as many as asked, as the guide's width
+        # allows, and as the budget allows the packed codes
+        guide_dim = params.build_pq_sketch_dim if use_sparse else feats.shape[1]
+        S_req = min(params.build_pq_subspaces, max(1, guide_dim // 2))
+        S_pq = max(1, min(S_req, self.BUILD_PQ_HBM_BUDGET // max(1, N * self.maxM0)))
+        self.use_pq = params.build_pq == "true" and guide_dim >= 2
+        if self.use_pq and use_sparse and not self.fast:
+            raise ValueError("reverse_alg4=True with build_pq='true' takes dense features only; the JAX package "
+                             "fails on sparse ones (ROADMAP F14): drop one option or pass data_type='drm'")
         if use_sparse:
             self.feats = build_sparse_feats(feats, device=device)
         else:
@@ -105,29 +173,58 @@ class _GraphBuild:
             if params.build_dtype in ("auto", "bfloat16"):
                 self.feats = self.feats.to(torch.bfloat16)  # the build's search copy only
         self.expand = params.build_expand or (4 if use_sparse else 8)
-        # selection cross-distances from a count-sketch (sparse, opt-in)
-        self.sketch = None
-        if use_sparse and params.build_select_sketch == "true":
-            self.sketch = torch.from_numpy(_hash_sketch(feats, params.build_pq_sketch_dim)).to(device)
         full = lambda shape, v, dt: torch.full(shape, v, dtype=dt, device=device)
-        self.n0, self.d0 = full((N, self.maxM0), -1, torch.int32), full((N, self.maxM0), INF, torch.float32)
+        self.n0 = full((N, self.maxM0), -1, torch.int32)
         self.up = [full((N, maxM), -1, torch.int32) for _ in range(self.max_level)]
-        self.up_d = [full((N, maxM), INF, torch.float32) for _ in range(self.max_level)]
+        self.d0 = full((N, self.maxM0), INF, torch.float32) if self.fast else None
+        self.up_d = [full((N, maxM), INF, torch.float32) if self.fast else None for _ in range(self.max_level)]
+        # count-sketch of sparse rows: the selection's cross-distances (opt-in) and the sparse PQ guide
+        sketch = None
+        if use_sparse and (params.build_select_sketch == "true" or self.use_pq):
+            sketch = torch.from_numpy(_hash_sketch(feats, guide_dim)).to(device)
+        self.sketch = sketch if params.build_select_sketch == "true" else None
+        self.guide = self.codes = self.codebooks = self.desc = None
+        if self.use_pq:
+            t0 = time.time()
+            # dense: the codes of the search copy, which the rescore reads; sparse: of the sketch
+            self.guide = sketch if use_sparse else self.feats
+            pq = train_pq4(sketch.cpu().numpy() if use_sparse else feats, num_subspaces=S_pq, iters=10,
+                           seed=params.seed, feats_dev=self.guide, device=device)
+            self.codes = torch.from_numpy(pq.codes).to(device)
+            self.codebooks = torch.from_numpy(pq.codebooks).to(device)
+            self.desc = full((N, self.maxM0 * S_pq), 0, torch.uint8)
+            LOGGER.info("hnsw build: PQ guide trained (S=%d) in %.1fs", S_pq, time.time() - t0)
         # one padded batch shape for every level-0 search
         self.B = min(params.build_batch_size, max(32, 1 << (max(N - 1, 1)).bit_length()))
+        # rows a reverse-edge prune takes at once: ~2^28 candidate feature elements
+        per_row = (self.maxM0 + self.K_PAD) * self.feats.shape[1]
+        self.A_CHUNK = int(min(65536, max(4096, (1 << 28) // max(1, per_row))))
         self.device = device
 
     def _rows(self, idx: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(idx).to(self.device)
 
+    def _packed(self, level: int):
+        """The (desc, codes) pair that writes to ``level`` keep in step, or None."""
+        return (self.desc, self.codes) if level == 0 and self.use_pq else None
+
     def search(self, q_idx: np.ndarray, ef: int, at_level: int = 0):
         """Greedy descent through the levels above ``at_level``, then a beam
         search at it, for the nodes q_idx (already padded).  Returns (Q, (ids, dists))."""
-        Q = self.feats[self._rows(q_idx)]
+        rows = self._rows(q_idx)
+        Q = self.feats[rows]
         cur = torch.full((len(q_idx),), self.entry, dtype=torch.long, device=self.device)
         if self.max_level > at_level:
             uppers = [self.up[l - 1] for l in range(self.max_level, at_level, -1)]
             cur = batch_greedy_descent_multi(self.feats, uppers, Q, cur, metric=self.metric, max_steps=64)
+        if at_level == 0 and self.use_pq:
+            # the guide misranks the beam's tail: walk wider, then rescore exactly
+            ef_pq = int(np.ceil(ef * self.params.build_pq_ef_mult))
+            Qg = Q if self.guide is self.feats else self.guide[rows]
+            lut = build_lut_device(self.codebooks, Qg, metric=self.metric)
+            ids, _ = batch_search_level_pq_packed(self.codes, self.n0, self.desc, lut, cur[:, None],
+                                                  ef=ef_pq, max_steps=4 * ef_pq, expand=self.expand)
+            return Q, exact_rescore(Q, self.feats, ids, metric=self.metric)
         arr = self.n0 if at_level == 0 else self.up[at_level - 1]
         g = DeviceGraph(self.feats, arr, self.metric)
         return Q, batch_search_level(g, Q, cur[:, None], ef=ef, max_steps=4 * ef, expand=self.expand)
@@ -139,11 +236,34 @@ class _GraphBuild:
         )
 
     def link(self, level: int, rows: np.ndarray, sel: torch.Tensor, sel_d: torch.Tensor) -> None:
-        """Forward rows set, then their reverse edges merged, at ``level``."""
+        """Forward rows set, then their reverse edges merged, at ``level``;
+        rows: the batch's nodes, then pads N."""
         arr, arr_d = (self.n0, self.d0) if level == 0 else (self.up[level - 1], self.up_d[level - 1])
-        r = self._rows(rows)
-        scatter_set_rows_d(arr, arr_d, r, sel, sel_d)
-        reverse_merge_closest(arr, arr_d, r, sel, sel_d)
+        r, packed = self._rows(rows), self._packed(level)
+        if self.fast:
+            scatter_set_rows_d(arr, arr_d, r, sel, sel_d, packed=packed)
+            reverse_merge_closest(arr, arr_d, r, sel, sel_d, packed=packed)
+            return
+        pts = rows[rows < self.N]
+        sel_np = sel[: len(pts)].cpu().numpy()
+        scatter_set_rows(arr, r, self._rows(_pad_rows(sel_np, len(rows), arr.shape[1])), packed=packed)
+        valid = sel_np >= 0
+        if valid.any():
+            self.apply_reverse(level, sel_np[valid], np.repeat(pts, valid.sum(axis=1)))
+
+    def apply_reverse(self, level: int, dst: np.ndarray, src: np.ndarray) -> None:
+        """The reverse edges dst -> src merged into ``level`` by Alg-4 prunes:
+        by destination in groups of K_PAD arrivals, in row chunks of at most
+        A_CHUNK.  (The JAX package pads each chunk with rows N to a power of
+        two, at least 1,024, to reuse compiled shapes; those rows write
+        nothing, and here they would only cost work.)"""
+        arr, packed = (self.n0 if level == 0 else self.up[level - 1]), self._packed(level)
+        for rows, cands in _group_edges(dst, src, self.K_PAD):
+            for a0 in range(0, len(rows), self.A_CHUNK):
+                scatter_prune_rows(
+                    arr, self.feats, self._rows(rows[a0 : a0 + self.A_CHUNK]),
+                    self._rows(cands[a0 : a0 + self.A_CHUNK]), metric=self.metric, alg4=True, packed=packed,
+                )
 
     def insert_growing(self, order: np.ndarray) -> None:
         """Batches of 32, then as large as everything inserted so far, up to
@@ -203,16 +323,35 @@ class _GraphBuild:
             self.link(0, rows, *self.select(ids, d))
         LOGGER.info("hnsw build: level-0 sweep of %d points (%.1fs)", len(pts), time.time() - t0)
 
+    def _union_gathered(self, nodes: torch.Tensor, ids: torch.Tensor, dists: torch.Tensor):
+        """refine_union_candidates without a co-array (the Alg-4 build): the
+        current neighbors' distances gathered from the features."""
+        nodes, ids = nodes.long(), ids.long()
+        self_mask = ids == nodes[:, None]
+        ids, dists = torch.where(self_mask, PAD, ids), torch.where(self_mask, INF, dists)
+        safe = nodes.clamp(0, self.N - 1)
+        ex = self.n0[safe].long()
+        ex_d = torch.where(ex >= 0, gather_dist(self.feats[safe], self.feats, ex, self.metric), INF)
+        dup = (ex[:, :, None] == ids[:, None, :]).any(dim=2)
+        ex_d = torch.where(dup | (nodes[:, None] < 0), INF, ex_d)
+        ex = torch.where(dup, PAD, ex)
+        all_d, all_ids = _sort_take(torch.cat([dists, ex_d], dim=1), torch.cat([ids, ex], dim=1))
+        return all_ids, all_d
+
     def _reselect(self, q_idx: np.ndarray, keys: np.ndarray):
         """A node's refine: its search at efC, united with its current
         neighbors, selected again.  keys: the nodes, -2 at the pads."""
         _, (ids, d) = self.search(q_idx, self.efC)
-        all_ids, all_d = refine_union_candidates(self.n0, self.d0, self._rows(keys), ids, d)
+        if self.fast:
+            all_ids, all_d = refine_union_candidates(self.n0, self.d0, self._rows(keys), ids, d)
+        else:
+            all_ids, all_d = self._union_gathered(self._rows(keys), ids, d)
         return self.select(all_ids, all_d)
 
     def refine_full(self, scan: bool) -> None:
         """Every node re-searched on the frozen graph; level 0 rebuilt from
-        the new forward lists, then their reverse edges merged chunk by chunk."""
+        the new forward lists (its packed codes re-packed), then their reverse
+        edges merged: chunk by chunk on the device, or by Alg-4 prunes."""
         B, N, M = self.B, self.N, self.M
         N_CEIL = -(-N // B) * B
         new_ids = torch.full((N_CEIL, M), -1, dtype=torch.int32, device=self.device)
@@ -223,9 +362,18 @@ class _GraphBuild:
             sel, sel_d = self._reselect(q_idx, _padded(nodes, B, -2))
             scatter_set_rows_d(new_ids, new_d, self._rows(_padded(nodes, B, N_CEIL)), sel, sel_d)
         pad = lambda x, v: torch.cat([x[:N], torch.full((N, self.maxM0 - M), v, dtype=x.dtype, device=x.device)], dim=1)
-        self.n0, self.d0 = pad(new_ids, -1), pad(new_d, INF)
-        for s0 in range(0, N_CEIL, B):
-            reverse_merge_chunk(self.n0, self.d0, new_ids, new_d, s0, B=B)
+        self.n0 = pad(new_ids, -1)
+        if self.use_pq:
+            self.desc = None  # the stale codes go first
+            self.desc = pack_neighbor_codes(self.n0, self.codes)
+        if self.fast:
+            self.d0 = pad(new_d, INF)
+            for s0 in range(0, N_CEIL, B):
+                reverse_merge_chunk(self.n0, self.d0, new_ids, new_d, s0, B=B, packed=self._packed(0))
+            return
+        fwd = new_ids[:N].cpu().numpy()
+        valid = fwd >= 0
+        self.apply_reverse(0, fwd[valid], np.repeat(np.arange(N), valid.sum(axis=1)))
 
     def refine_partial(self, nodes: np.ndarray) -> None:
         """The given nodes re-searched and re-linked in place, batch by batch, on the live graph."""
@@ -240,10 +388,10 @@ class HNSW(pecos_tpu_torch.BaseClass):
     @dc.dataclass
     class TrainParams(pecos_tpu_torch.BaseParams):
         """The JAX package's fields and defaults (its docstrings say what each
-        does).  Not ported: ``reverse_alg4=True`` and ``build_pq="true"``
-        raise NotImplementedError; ``build_pq_subspaces``,
-        ``build_pq_min_points`` and ``build_pq_ef_mult`` only serve the PQ-guided
-        build; ``threads`` is kept for parity."""
+        does).  ``reverse_alg4=True`` with ``build_pq="true"`` on sparse
+        features raises ValueError (the JAX package fails there);
+        ``build_pq_min_points`` is read by nothing, as in the JAX package;
+        ``threads`` is kept for parity."""
 
         M: int = 32
         efC: int = 100
@@ -256,19 +404,19 @@ class HNSW(pecos_tpu_torch.BaseClass):
         build_batch_size: int = 2048
         refine_iters: int = 1
         build_efC_insert: int = 0  # level-0 insertion beam; 0 = efC
-        reverse_alg4: bool = False
+        reverse_alg4: bool = False  # Alg-4 (vs keep-closest) reverse-edge prune, eager mode only
         build_expand: int = 0  # pops per search step in the build; 0 = 8 dense, 4 sparse
         build_dtype: str = "auto"  # auto (bfloat16 dense, float32 sparse) | float32 | bfloat16
         data_type: str = "auto"  # auto | drm | csr
         sparse_dim_threshold: int = 65536
-        build_pq: str = "auto"  # auto (off) | true | false
+        build_pq: str = "auto"  # auto (off) | true | false: the PQ-guided level-0 walk
         build_pq_subspaces: int = 64
         build_pq_min_points: int = 50000
-        build_pq_sketch_dim: int = 128
+        build_pq_sketch_dim: int = 128  # the sparse guide's count-sketch width
         build_select_sketch: str = "false"  # true | false
         select_pool: int = 0
-        build_pq_ef_mult: float = 1.3
-        build_scan: str = "auto"  # auto (dense, N >= 65536) | true | false
+        build_pq_ef_mult: float = 1.3  # the PQ-guided walk's beam, a multiple of ef
+        build_scan: str = "auto"  # auto (dense, N >= 65536, fast path) | true | false
         build_intra_k: int = 32
         refine_fraction: float = 1.0
 
@@ -321,10 +469,6 @@ class HNSW(pecos_tpu_torch.BaseClass):
         ``refine_iters`` refine passes (see the module docstring)."""
         params = cls.TrainParams.from_dict(train_params)
         params.override_with_kwargs(kwargs)
-        if params.reverse_alg4:
-            raise NotImplementedError("reverse_alg4=True (the host-grouped Alg-4 reverse-edge prune) is not ported")
-        if params.build_pq == "true":
-            raise NotImplementedError("build_pq='true' (the PQ-guided build) is not ported")
         dev = resolve_device(device)
         use_sparse = smat.issparse(X) and (
             params.data_type == "csr"
@@ -348,7 +492,12 @@ class HNSW(pecos_tpu_torch.BaseClass):
         levels[0] = levels.max()  # the first point anchors the top level
 
         build = _GraphBuild(feats, use_sparse, params, levels, dev)
-        use_scan = params.build_scan == "true" or (params.build_scan == "auto" and N >= 65536 and not use_sparse)
+        use_scan = params.build_scan == "true" or (
+            params.build_scan == "auto" and build.fast and N >= 65536 and not use_sparse
+        )
+        if use_scan and not build.fast:
+            LOGGER.warning("build_scan requires the device-resident (fast) path; ignoring")
+            use_scan = False
         l0_pts = np.zeros(0, np.int64)
         if use_scan:
             upper_pts, l0_pts = np.where(levels >= 1)[0], np.where(levels == 0)[0]

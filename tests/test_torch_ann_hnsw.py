@@ -15,7 +15,6 @@ equal outright over the same arrays in memory.
 import numpy as np
 import pytest
 import scipy.sparse as smat
-import torch
 
 from pecos_tpu.ann import HNSW as JaxHNSW
 from pecos_tpu_torch.ann import HNSW
@@ -158,17 +157,6 @@ def test_folders_load_both_ways(jax_builds, name, tmp_path):
     i2, d2 = again.predict(Q)
     np.testing.assert_array_equal(i2, ids)
     np.testing.assert_allclose(d2, dists, rtol=1e-6)
-
-
-def test_deferred_parameters_raise():
-    X, _ = _data(n=50)
-    with pytest.raises(NotImplementedError, match="reverse_alg4"):
-        HNSW.train(X, reverse_alg4=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="build_pq"):
-        HNSW.train(X, build_pq="true", device="cpu")
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
-            HNSW.train(X, M=4, efC=10, device="cuda")
 
 
 def test_cli_end_to_end(tmp_path, capsys):

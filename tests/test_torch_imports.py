@@ -33,7 +33,8 @@ for name in names:
 for name in ("pecos_tpu_torch.core", "pecos_tpu_torch.apps.text2text.predict", "pecos_tpu_torch.utils.mmap_valstore_util",
              "pecos_tpu_torch.utils.featurization.text.sentencepiece_util", "pecos_tpu_torch.xmc.calibration",
              *(f"pecos_tpu_torch.xmc.xtransformer.{m}" for m in ("module", "network", "matcher", "model", "train", "predict", "encode")),
-             "pecos_tpu_torch.xmr.reranker.model", "pecos_tpu_torch.distributed.xmc.xtransformer.module"):
+             "pecos_tpu_torch.xmr.reranker.model", "pecos_tpu_torch.distributed.xmc.xtransformer.module",
+             "pecos_tpu_torch.examples.fm_for_xmc"):
     assert name in names, name
 import chip_smoke  # the module only: main() runs under __main__
 leaked = sorted(m for m in sys.modules if m == "pecos_tpu" or m.startswith("pecos_tpu."))
