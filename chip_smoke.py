@@ -99,7 +99,12 @@ non-zero:
              member's scores within rtol 1e-5 + 1e-5 x the largest; then K1
              at the path's shapes: 64 test queries at every plabel level of
              each member, over the padded tables the predict reads, against
-             the sparse product at the candidate columns.
+             the sparse product at the candidate columns; (c) PIFA's
+             product Y^T X on (b)'s train data (90,000 x 8,192 labels,
+             90,000 x 2.8M features) through the host core's SpGEMM on
+             every host thread, twice (equal), and as scipy's one-threaded
+             product: seconds of each, nnz, exact zeros kept, and equal
+             values wherever both hold an entry.
 14. xtransformer — (a) the five encoder families (bert, roberta, distilbert,
              xlm-roberta, xlnet) at their base widths, random-init from a
              seed, 8 x 128 tokens through the card and the CPU: pooled
@@ -1788,21 +1793,58 @@ def profile_ann(device, smi):
     print_profile(prof, wall, f"ann sparse build {kw}, {Xc.shape[0]} points", smi)
 
 
-def t2t_member_inputs(n_test):
-    """One Text2Text member's inputs on phase 13b's data, as Text2Text.train
-    makes them: (X, Y) of the train lines, X of the first ``n_test`` test
-    lines, and the PIFA label embedding."""
+def t2t_data(corpus, n_test):
+    """Phase 13b's data as Text2Text.train makes it: (X, Y) of the train
+    lines and X of the first ``n_test`` test lines (None for 0)."""
     from pecos_tpu_torch.utils.featurization.text import Preprocessor
-    from pecos_tpu_torch.xmc import LabelEmbeddingFactory
 
-    corpus = load_script("tokenizer_bench").make_corpus(**T2T_CORPUS)
     with tempfile.TemporaryDirectory() as tmp:
         items, trn, tst = make_t2t_files(tmp, corpus)
         parsed = Preprocessor.load_data_from_file(trn, label_text_path=items)
         pre = Preprocessor.train(parsed["corpus"], vectorizer_config=T2T_VECTORIZER)
         X, Y = pre.predict(parsed["corpus"]), parsed["label_matrix"]
-        Xt = pre.predict(Preprocessor.load_data_from_file(tst)["corpus"][:n_test])
+        Xt = pre.predict(Preprocessor.load_data_from_file(tst)["corpus"][:n_test]) if n_test else None
+    return X, Y, Xt
+
+
+def t2t_member_inputs(n_test):
+    """One Text2Text member's inputs on phase 13b's data: t2t_data's (X, Y,
+    Xt) and the PIFA label embedding."""
+    from pecos_tpu_torch.xmc import LabelEmbeddingFactory
+
+    X, Y, Xt = t2t_data(load_script("tokenizer_bench").make_corpus(**T2T_CORPUS), n_test)
     return X, Y, Xt, LabelEmbeddingFactory.create(Y, X, method="pifa")
+
+
+def run_spgemm(smi, corpus):
+    """Phase 13c: PIFA's product Z = Y^T X on phase 13b's train data, through
+    the host core's SpGEMM (twice: one input must give one Z) and as scipy's
+    product.  scipy drops the sums that are exactly 0; on every other entry
+    the two must be equal."""
+    from pecos_tpu_torch.utils.spgemm_util import spgemm_atb
+
+    t0 = time.perf_counter()
+    X, Y, _ = t2t_data(corpus, 0)
+    data_s = time.perf_counter() - t0
+    Z, native_s = best_time(lambda: spgemm_atb(Y, X), 1)
+    again, again_s = best_time(lambda: spgemm_atb(Y, X), 1)
+    S, scipy_s = best_time(lambda: Y.T.tocsr() @ X, 1)
+    S = S.tocsr()
+    S.sort_indices()
+    zeros = int((Z.data == 0).sum())
+    kept = Z.copy()
+    kept.eliminate_zeros()
+    same = all(np.array_equal(a, b) for a, b in ((again.indptr, Z.indptr), (again.indices, Z.indices), (again.data, Z.data)))
+    equal = (S.shape == kept.shape and np.array_equal(S.indptr, kept.indptr) and np.array_equal(S.indices, kept.indices)
+             and np.array_equal(S.data, kept.data))
+    print(f"spgemm [{smi}]: Z = Y^T X of Y {Y.shape} ({Y.dtype}, nnz {Y.nnz}) and X {X.shape} ({X.dtype}, nnz {X.nnz}); "
+          f"native spgemm_atb on {os.cpu_count()} host threads {native_s!r} s and again {again_s!r} s (equal "
+          f"{same}), scipy Y.T.tocsr() @ X {scipy_s!r} s ({S.dtype}); nnz {Z.nnz} native, {S.nnz} scipy, {zeros} exact "
+          f"zeros kept; equal wherever both hold an entry {equal}; data made in {data_s!r} s")
+    if not same:
+        raise RuntimeError("spgemm: two native products of the same operands differ")
+    if not equal or Z.dtype != np.float32:
+        raise RuntimeError("spgemm: the native product and scipy's differ on the entries both hold")
 
 
 # one process of ``--f8-cost``: argv tree, data folder, the solve's kwargs
@@ -2727,10 +2769,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 13. text2text: Tfidf at the tokenizer benchmark's protocol, then Text2Text trained and served on the card
+    # 13. text2text: Tfidf at the tokenizer benchmark's protocol, then Text2Text trained and served on the card,
+    # then PIFA's SpGEMM on its train data
     corpus = run_tfidf()
     t2t_launches, t2t_k1_err = run_text2text(device, smi, corpus)
     max_err = max(max_err, t2t_k1_err)
+    run_spgemm(smi, corpus)
     gc.collect()
     torch.cuda.empty_cache()
 

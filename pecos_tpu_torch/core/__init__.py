@@ -1,17 +1,20 @@
-"""The native host core: the TF-IDF tokenizer and the mmap stores, in C++.
+"""The native host core: the TF-IDF tokenizer, the mmap stores and the PIFA
+SpGEMM, in C++.
 
-``csrc/tokenizer.cpp`` and ``csrc/mmap_store.cpp`` are the port's own copies of
-the JAX package's host sources; they fix the token rule, the FNV-1a hashes and
-the store byte layout, so vocabularies and stores written by either package
-open in the other.  ``g++`` builds them at first use into one shared library
-under ``pecos_tpu_torch/_build/``, rebuilt when they or the compiler change
+``csrc/tokenizer.cpp``, ``csrc/mmap_store.cpp`` and ``csrc/spgemm.cpp`` are the
+port's own copies of the JAX package's host sources; they fix the token rule,
+the FNV-1a hashes, the store byte layout and the order of the sparse
+product's float32 sums, so vocabularies and stores written by either package
+open in the other and both give PIFA bit for bit.  ``g++`` builds them at
+first use into one shared library under ``pecos_tpu_torch/_build/``, rebuilt
+when they or the compiler change
 (``utils.build_util``, as for the CUDA kernels).  A failed build raises with
 the compiler's output; no caller falls back to a Python path.
 
 :func:`load_library` declares every C signature once, so the modules above it
-(``utils/mmap_hashmap_util.py``, ``utils/mmap_valstore_util.py`` and the
-tokenizer bridge in ``utils/featurization/text/vectorizers.py``) only pass
-buffers.
+(``utils/mmap_hashmap_util.py``, ``utils/mmap_valstore_util.py``,
+``utils/spgemm_util.py`` and the tokenizer bridge in
+``utils/featurization/text/vectorizers.py``) only pass buffers.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ def _find_cxx() -> str:
     if cxx is None:
         raise RuntimeError(
             "g++ not found on PATH (or $CXX); the host core of pecos_tpu_torch "
-            "(tokenizer and mmap stores) is built from source at first use"
+            "(tokenizer, mmap stores and SpGEMM) is built from source at first use"
         )
     return cxx
 
@@ -114,6 +117,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         "mvs_bytes_batch_get": (None, [vp, u64, u64p, cp, u64, u64p, ci]),
         "mvs_bytes_save": (ci, [vp, cp]),
         "mvs_bytes_load": (vp, [cp, ci]),
+        # spgemm.cpp
+        "spgemm_atb": (vp, [i64, i64, i64, i64p, i32p, fp, i64p, i32p, fp, ci]),
+        "spgemm_nnz": (i64, [vp]),
+        "spgemm_fill": (None, [vp, i64p, i32p, fp]),
+        "spgemm_free": (None, [vp]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)

@@ -29,6 +29,7 @@ import torch
 import pecos_tpu_torch
 from pecos_tpu_torch.utils import smat_util
 from pecos_tpu_torch.utils.cluster_util import ClusterChain
+from pecos_tpu_torch.utils.spgemm_util import spgemm_atb
 from pecos_tpu_torch.utils.torch_util import DeviceLike, make_generator, resolve_device, segment_sum
 
 LOGGER = logging.getLogger(__name__)
@@ -280,8 +281,14 @@ class LabelEmbeddingFactory(object):
 
     @staticmethod
     def pifa(Y, X):
-        """Positive Instance Feature Aggregation: the L2-normalised rows of Y^T X."""
-        return smat_util.normalize(LabelEmbeddingFactory._transposed(Y) @ X, axis=1, norm="l2")
+        """Positive Instance Feature Aggregation: the L2-normalised rows of Y^T X.
+        With Y and X both sparse, Y^T X is the host core's SpGEMM, the JAX
+        package's product bit for bit (float32, sorted rows, exact zeros kept)."""
+        if smat.issparse(Y) and smat.issparse(X):
+            emb = spgemm_atb(Y, X)
+        else:
+            emb = LabelEmbeddingFactory._transposed(Y) @ X
+        return smat_util.normalize(emb, axis=1, norm="l2")
 
     @staticmethod
     def pifa_lf_concat(Y, X, Z):

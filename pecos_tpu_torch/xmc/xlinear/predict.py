@@ -7,6 +7,7 @@ Usage:
 import argparse
 
 from pecos_tpu_torch.utils import smat_util
+from pecos_tpu_torch.utils.logging_util import setup_logging_config
 from .model import XLinearModel
 
 
@@ -19,11 +20,13 @@ def parse_arguments(args=None):
     p.add_argument("-b", "--beam-size", type=int, default=None)
     p.add_argument("-k", "--only-topk", type=int, default=None)
     p.add_argument("-pp", "--post-processor", type=str, default=None)
+    p.add_argument("--verbose-level", type=int, default=1)
     p.add_argument("--device", type=str, default="cuda", help="torch device: cuda (default) or cpu")
     return p.parse_args(args)
 
 
 def do_predict(args):
+    setup_logging_config(args.verbose_level)
     X = smat_util.load_feature_matrix(args.inst_path)
     model = XLinearModel.load(args.model_folder, device=args.device)
     kwargs = {

@@ -4,9 +4,9 @@ against the JAX package's, on the same numpy-seeded inputs.
 Tolerances: functions that run the same numpy/scipy arithmetic are held to
 exact equality.  CsrEnsembler results: indices exact, data within rtol 1e-6
 (the port computes the rank methods' weights without a loop over rows).
-spgemm_atb: indices exact, data within rtol 1e-6 (scipy and the
-JAX package's native product add each entry's few positive terms in another
-order).  Platt A and B within 1e-6.
+spgemm_atb: bit-equal to the JAX package's native product (both
+packages' host cores add the same float32 terms in the same order;
+tests/test_torch_spgemm.py holds the other cases).  Platt A and B within 1e-6.
 """
 
 import numpy as np
@@ -133,7 +133,7 @@ def test_spgemm_atb_matches_native():
     X.data = rng.uniform(0.1, 1.0, X.nnz).astype(np.float32)
     got, want = spgemm_atb(Y, X), jax_spgemm(Y, X)
     assert got.dtype == want.dtype == np.float32 and got.has_canonical_format
-    _assert_csr_equal(got, want.tocsr(), rtol=1e-6)
+    _assert_csr_equal(got, want.tocsr())
 
 
 def test_platt_matches_jax():

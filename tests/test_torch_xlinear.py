@@ -6,6 +6,8 @@ JAX package with the same result.  Scores agree to rtol=1e-5 (float32 sums in
 another order), atol=1e-7 for values that cancel towards zero.
 """
 
+import logging
+
 import numpy as np
 import pytest
 import scipy.sparse as smat
@@ -81,6 +83,27 @@ def test_predict_cli_matches_jax(jax_model_folder, tmp_path):
     smat_util.save_matrix(x_path, X)
     smat_util.save_matrix(y_path, Y)
     predict_cli.main(["-x", x_path, "-m", folder, "-o", pred_path, "-y", y_path, "-b", "4", "-k", "5", "--device", "cpu"])
+    _assert_same(JaxXLinear.load(folder).predict(X, beam_size=4, only_topk=5), smat_util.load_matrix(pred_path), Y)
+
+
+@pytest.mark.parametrize("level,want", [(0, logging.ERROR), (3, logging.DEBUG)])
+def test_predict_cli_verbose_level(jax_model_folder, tmp_path, level, want):
+    """--verbose-level sets the root logger's level as the JAX CLI's does."""
+    folder, X, Y = jax_model_folder
+    x_path, pred_path = str(tmp_path / "X.npz"), str(tmp_path / "P.npz")
+    smat_util.save_matrix(x_path, X)
+    root = logging.getLogger()
+    saved = root.level, list(root.handlers)
+    try:
+        predict_cli.main(["-x", x_path, "-m", folder, "-o", pred_path, "-b", "4", "-k", "5", "--verbose-level", str(level),
+                          "--device", "cpu"])
+        assert root.level == want
+    finally:
+        for h in list(root.handlers):
+            root.removeHandler(h)
+        root.setLevel(saved[0])
+        for h in saved[1]:
+            root.addHandler(h)
     _assert_same(JaxXLinear.load(folder).predict(X, beam_size=4, only_topk=5), smat_util.load_matrix(pred_path), Y)
 
 
