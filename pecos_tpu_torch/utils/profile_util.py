@@ -1,8 +1,82 @@
-"""Memory reporting for phase-boundary logs (the port of ``pecos_tpu/utils/profile_util.py``)."""
+"""Memory reporting for phase-boundary logs (the port of ``pecos_tpu/utils/profile_util.py``),
+and the program's own spans and counters.
+
+``span(name)`` times a block of the program on the host clock and ``count(name,
+n)`` adds to a counter, both into one in-memory registry of the process that
+``snapshot()`` copies out and ``reset()`` zeroes.  While a ``torch.profiler``
+is recording, a span also enters ``torch.profiler.record_function(name)``, so
+it lands as a ``user_annotation`` event on the profiler's timeline beside the
+device's kernels and copies; spans nest by enclosure on one thread, as the
+profiler's events do.  With no profiler running a span costs one check of the
+profiler's state, a pair of clock reads and a dict add.  The registry's adds
+run under the interpreter lock without one of their own: exact where one
+thread records, and a concurrent add to the same name may be lost.
+"""
 
 from __future__ import annotations
 
 import os
+import time
+from typing import Dict
+
+import torch
+
+# name -> [seconds, calls]
+_SPANS: Dict[str, list] = {}
+_COUNTERS: Dict[str, int] = {}
+
+
+class span:
+    """Context manager: adds the block's host seconds and one call to span
+    ``name``, also when the block raises; inside a recording
+    ``torch.profiler`` it is a ``record_function(name)`` range as well."""
+
+    __slots__ = ("name", "_t0", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        # record_function costs microseconds even with no profiler running:
+        # enter it only while one records
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        else:
+            self._range = None
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        dt = time.perf_counter() - self._t0
+        rec = _SPANS.get(self.name)
+        if rec is None:
+            rec = _SPANS[self.name] = [0.0, 0]
+        rec[0] += dt
+        rec[1] += 1
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``."""
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + int(n)
+
+
+def snapshot() -> Dict[str, Dict]:
+    """A copy of the registry: ``{"spans": {name: {"s": seconds, "n": calls}},
+    "counters": {name: int}}``."""
+    return {
+        "spans": {k: {"s": v[0], "n": v[1]} for k, v in _SPANS.items()},
+        "counters": dict(_COUNTERS),
+    }
+
+
+def reset() -> None:
+    """Zero the registry."""
+    _SPANS.clear()
+    _COUNTERS.clear()
 
 
 class MemInfo(object):
@@ -24,8 +98,6 @@ class MemInfo(object):
     @staticmethod
     def device_mem_info() -> str:
         """Memory in use and total of each CUDA device, or ``no device stats``."""
-        import torch
-
         if not torch.cuda.is_available():
             return "no device stats"
         parts = []

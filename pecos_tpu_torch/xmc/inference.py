@@ -39,6 +39,7 @@ import torch
 from pecos_tpu_torch.ops.intersect import intersect_scores_rows, split_packed
 from pecos_tpu_torch.utils import smat_util
 from pecos_tpu_torch.utils.cluster_util import padded_children
+from pecos_tpu_torch.utils.profile_util import count, span
 from pecos_tpu_torch.utils.torch_util import DeviceLike, resolve_device
 from .postprocessor import PostProcessor
 
@@ -118,22 +119,24 @@ def build_device_layer(
     layout: Optional[str] = None,
     device: DeviceLike = "cuda",
 ) -> DeviceLayer:
-    """Device layout for one layer from host CSC W (D+1, L) and C (L, n_parents)."""
-    W = W.tocsc()
-    n_feat_b, L = W.shape
-    children, _ = padded_children(C)
-    if layout is None:
-        layout = "dense" if n_feat_b * L <= DENSE_LAYOUT_MAX_ELEMENTS else "plabel"
-    if layout == "dense":
-        arrays = {"W": np.asarray(W.todense(), dtype=np.float32)}
-    elif layout == "plabel":
-        packed = _plabel_packed(W)
-        arrays = {"packed": packed, "parent_packed": build_parent_packed(packed, children)}
-    else:
-        raise ValueError(f"unknown layout {layout!r}")
-    return layers_from_numpy(
-        [{"kind": layout, "nr_labels": L, "children": children, **arrays}], device
-    )[0]
+    """Device layout for one layer from host CSC W (D+1, L) and C (L, n_parents),
+    in span ``pecos.layouts``."""
+    with span("pecos.layouts"):
+        W = W.tocsc()
+        n_feat_b, L = W.shape
+        children, _ = padded_children(C)
+        if layout is None:
+            layout = "dense" if n_feat_b * L <= DENSE_LAYOUT_MAX_ELEMENTS else "plabel"
+        if layout == "dense":
+            arrays = {"W": np.asarray(W.todense(), dtype=np.float32)}
+        elif layout == "plabel":
+            packed = _plabel_packed(W)
+            arrays = {"packed": packed, "parent_packed": build_parent_packed(packed, children)}
+        else:
+            raise ValueError(f"unknown layout {layout!r}")
+        return layers_from_numpy(
+            [{"kind": layout, "nr_labels": L, "children": children, **arrays}], device
+        )[0]
 
 
 def layers_from_numpy(layers: Sequence[Dict], device: DeviceLike) -> List[DeviceLayer]:
@@ -526,16 +529,18 @@ def chain_predict(
     X is the dense (N, D+1) query block for dense layers; (qids, qvals) the
     padded sparse form for plabel layers.  Either may be None when no layer
     needs it.  ``bias_id`` (the bias feature's column) lets sparse scoring add
-    the bias term without widening every query row.
+    the bias term without widening every query row.  Level d's step runs in
+    span ``pecos.level.<d>``.
     """
     ref = X if X is not None else qids
     parents, pvals = root_beam(layers[0].children.shape[0], ref.shape[0], pp_names[0], ref.device)
     for d, layer in enumerate(layers):
         k = only_topk if d == len(layers) - 1 else beam_size
-        parents, pvals = beam_step(
-            X, layer, parents, pvals, k, PostProcessor.get(pp_names[d]), no_prev=(d == 0),
-            qids=qids, qvals=qvals, bias_id=bias_id, bias_val=bias_val,
-        )
+        with span(f"pecos.level.{d}"):
+            parents, pvals = beam_step(
+                X, layer, parents, pvals, k, PostProcessor.get(pp_names[d]), no_prev=(d == 0),
+                qids=qids, qvals=qvals, bias_id=bias_id, bias_val=bias_val,
+            )
     return parents, pvals
 
 
@@ -679,36 +684,54 @@ class CompiledHierModel:
         wire.  Each batch is prepared on the host, uploaded from pinned memory
         without blocking and run; results stay on the device until one
         concatenation and one copy to the host at the end.
+
+        The call runs in span ``pecos.predict``; each batch's padding,
+        upload and beam walk in ``pecos.pad``, ``pecos.upload`` and
+        ``pecos.walk``, the fetch in ``pecos.fetch``.  Counters:
+        ``pecos.batches``, and for sparse batches ``pecos.query_nnz`` (real
+        nonzeros) and ``pecos.query_slots`` (padded slots uploaded).
         """
-        check_wire_value_dtype(wire_value_dtype)
-        _check_features(X, self.nr_features)
-        pp_names = _pp_names(post_processor, self.depth)
-        N = X.shape[0]
-        batch = min(batch_size, max(1, 1 << max(N - 1, 0).bit_length()))
-        D = self.nr_features
-        pending = []
-        if smat.issparse(X):
-            A = X.tocsr()
-            max_nnz = int(np.diff(A.indptr).max()) if N else 1
-            cap = max(64, 1 << max(0, max_nnz - 1).bit_length())
-            has_dense = self.uses_dense_queries(batch, cap)
-            for s in range(0, N, batch):
-                ids, vals = pad_query_rows(*prepare_queries_padded(A[s : s + batch], cap=cap), batch, D)
-                qids, qvals = self.queries_to_device(ids, vals, wire_value_dtype)
-                labels, scores = self.predict_padded(
-                    qids, qvals, beam_size=beam_size, only_topk=only_topk, pp_names=pp_names,
-                    has_dense=has_dense,
-                )
-                pending.append((labels[: N - s], scores[: N - s]))
-        else:
-            Xd = prepare_queries(X, self.bias)
-            for s in range(0, N, batch):
-                xb = Xd[s : s + batch]
-                if xb.shape[0] < batch:
-                    xb = np.vstack([xb, np.zeros((batch - xb.shape[0], xb.shape[1]), np.float32)])
-                labels, scores = chain_predict(_upload(xb, self.device), self.layers, beam_size, only_topk, pp_names)
-                pending.append((labels[: N - s], scores[: N - s]))
-        return _fetch_topk(pending, only_topk, self.nr_labels)
+        with span("pecos.predict"):
+            check_wire_value_dtype(wire_value_dtype)
+            _check_features(X, self.nr_features)
+            pp_names = _pp_names(post_processor, self.depth)
+            N = X.shape[0]
+            batch = min(batch_size, max(1, 1 << max(N - 1, 0).bit_length()))
+            D = self.nr_features
+            pending = []
+            if smat.issparse(X):
+                A = X.tocsr()
+                max_nnz = int(np.diff(A.indptr).max()) if N else 1
+                cap = max(64, 1 << max(0, max_nnz - 1).bit_length())
+                has_dense = self.uses_dense_queries(batch, cap)
+                for s in range(0, N, batch):
+                    with span("pecos.pad"):
+                        ids, vals = pad_query_rows(*prepare_queries_padded(A[s : s + batch], cap=cap), batch, D)
+                    with span("pecos.upload"):
+                        qids, qvals = self.queries_to_device(ids, vals, wire_value_dtype)
+                    count("pecos.batches")
+                    count("pecos.query_nnz", A.indptr[min(s + batch, N)] - A.indptr[s])
+                    count("pecos.query_slots", ids.size)
+                    with span("pecos.walk"):
+                        labels, scores = self.predict_padded(
+                            qids, qvals, beam_size=beam_size, only_topk=only_topk, pp_names=pp_names,
+                            has_dense=has_dense,
+                        )
+                    pending.append((labels[: N - s], scores[: N - s]))
+            else:
+                for s in range(0, N, batch):
+                    with span("pecos.pad"):
+                        xb = prepare_queries(X[s : s + batch], self.bias)
+                        if xb.shape[0] < batch:
+                            xb = np.vstack([xb, np.zeros((batch - xb.shape[0], xb.shape[1]), np.float32)])
+                    with span("pecos.upload"):
+                        xb = _upload(xb, self.device)
+                    count("pecos.batches")
+                    with span("pecos.walk"):
+                        labels, scores = chain_predict(xb, self.layers, beam_size, only_topk, pp_names)
+                    pending.append((labels[: N - s], scores[: N - s]))
+            with span("pecos.fetch"):
+                return _fetch_topk(pending, only_topk, self.nr_labels)
 
     def realtime_session(self, **kwargs) -> "RealtimeSession":
         """Open a persistent low-latency predict session (see RealtimeSession)."""

@@ -1,0 +1,178 @@
+"""The port's spans and counters (``pecos_tpu_torch.utils.profile_util``) and
+where the predict path records them: the registry's sums, nesting and
+exceptions, ``record_function`` only under a recording profiler, the spans as
+``user_annotation`` events of a profiler's trace, and the counters of padded
+query slots."""
+
+import json
+
+import numpy as np
+import pytest
+import scipy.sparse as smat
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from pecos_tpu_torch.utils import profile_util
+from pecos_tpu_torch.xmc.inference import CompiledHierModel
+
+D = 128
+SIZES = [4, 32, 256]
+LAYOUTS = ["dense", "plabel", "plabel"]
+
+
+def make_chain(seed=0, nnz=6):
+    """(Ws, Cs) of a tree over SIZES: every node weighs ``nnz`` features and the bias."""
+    rng = np.random.default_rng(seed)
+    Ws, Cs, n_parents = [], [], 1
+    for L in SIZES:
+        rows = np.concatenate([np.sort(rng.choice(D, size=(L, nnz)), axis=1), np.full((L, 1), D)], axis=1)
+        vals = (rng.standard_normal(rows.shape) * 0.3).astype(np.float32)
+        Ws.append(smat.csc_matrix((vals.ravel(), (rows.ravel(), np.repeat(np.arange(L), nnz + 1))), shape=(D + 1, L)))
+        Cs.append(smat.csc_matrix((np.ones(L, np.float32), (np.arange(L), np.arange(L) * n_parents // L)),
+                                  shape=(L, n_parents)))
+        n_parents = L
+    return Ws, Cs
+
+
+@pytest.fixture(scope="module")
+def model():
+    Ws, Cs = make_chain()
+    return CompiledHierModel.from_host_chain(Ws, Cs, 1.0, layouts=LAYOUTS, device="cpu")
+
+
+@pytest.fixture
+def X():
+    return smat.random(200, D, density=0.1, format="csr", random_state=1, dtype=np.float32)
+
+
+@pytest.fixture(autouse=True)
+def fresh_registry():
+    profile_util.reset()
+    yield
+    profile_util.reset()
+
+
+def annotations(prof, tmp_path):
+    """The ``user_annotation`` events of a profile's Chrome trace."""
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("cat") == "user_annotation"]
+
+
+def inside(child, parent):
+    return parent["ts"] <= child["ts"] and child["ts"] + child["dur"] <= parent["ts"] + parent["dur"]
+
+
+def test_spans_accumulate_nest_and_close_on_an_exception():
+    for _ in range(3):
+        with profile_util.span("outer"):
+            with profile_util.span("inner"):
+                sum(range(1000))
+    with pytest.raises(ValueError):
+        with profile_util.span("outer"):
+            with profile_util.span("raises"):
+                raise ValueError("inside a span")
+    profile_util.count("c", 2)
+    profile_util.count("c")
+    snap = profile_util.snapshot()
+    assert {k: v["n"] for k, v in snap["spans"].items()} == {"outer": 4, "inner": 3, "raises": 1}
+    assert 0 < snap["spans"]["inner"]["s"] < snap["spans"]["outer"]["s"]
+    assert snap["counters"] == {"c": 3}
+
+
+def test_no_record_function_without_a_profiler(monkeypatch, model, X):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    model.predict(X, batch_size=64)
+    assert profile_util.snapshot()["spans"]["pecos.predict"]["n"] == 1
+
+
+def test_predict_spans_nest_in_a_profiler_trace(model, X, tmp_path):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        model.predict(X, batch_size=64)
+    ev = annotations(prof, tmp_path)
+    by_name = {}
+    for e in ev:
+        by_name.setdefault(e["name"], []).append(e)
+    (top,) = by_name["pecos.predict"]
+    (fetch,) = by_name["pecos.fetch"]
+    assert inside(fetch, top)
+    for name in ("pecos.pad", "pecos.upload", "pecos.walk"):
+        assert len(by_name[name]) == 4 and all(inside(e, top) for e in by_name[name])
+    for d in range(len(SIZES)):
+        levels = by_name[f"pecos.level.{d}"]
+        assert len(levels) == 4
+        assert all(any(inside(e, w) for w in by_name["pecos.walk"]) for e in levels)
+    assert {e["tid"] for e in ev} == {top["tid"]}
+
+
+def test_counters_of_a_call_with_a_short_last_batch(model, X):
+    batch = 64
+    assert X.shape[0] % batch  # the last batch is short and padded with empty rows
+    cap = max(64, 1 << (int(np.diff(X.indptr).max()) - 1).bit_length())
+    model.predict(X, batch_size=batch)
+    snap = profile_util.snapshot()
+    batches = -(-X.shape[0] // batch)
+    assert snap["counters"] == {"pecos.batches": batches, "pecos.query_nnz": X.nnz,
+                                "pecos.query_slots": batches * batch * cap}
+    for name in ("pecos.pad", "pecos.upload", "pecos.walk") + tuple(f"pecos.level.{d}" for d in range(len(SIZES))):
+        assert snap["spans"][name]["n"] == batches
+    assert snap["spans"]["pecos.predict"]["n"] == snap["spans"]["pecos.fetch"]["n"] == 1
+
+
+def test_dense_queries_count_batches_and_no_slots(model, X):
+    model.predict(X.toarray(), batch_size=64)
+    snap = profile_util.snapshot()
+    assert snap["counters"] == {"pecos.batches": 4}
+    assert all(snap["spans"][n]["n"] == 4 for n in ("pecos.pad", "pecos.upload", "pecos.walk"))
+
+
+def test_session_adds_nothing_to_the_batch_spans_or_counters(model, X):
+    """A session's walk records its levels only: the batch path's spans and
+    counters, which the benchmark's readers divide, stay the batch path's."""
+    session = model.realtime_session(batch=4, cap=64)
+    assert {k: v["n"] for k, v in profile_util.snapshot()["spans"].items()} == {
+        f"pecos.level.{d}": 1 for d in range(len(SIZES))
+    }  # the warm walk of opening the session
+    session.predict(X[:3])
+    session.predict(X[3:7])
+    snap = profile_util.snapshot()
+    assert {k: v["n"] for k, v in snap["spans"].items()} == {f"pecos.level.{d}": 3 for d in range(len(SIZES))}
+    assert snap["counters"] == {}
+
+
+def test_layouts_span_once_per_layer_build():
+    Ws, Cs = make_chain(seed=3)
+    CompiledHierModel.from_host_chain(Ws, Cs, 1.0, layouts=LAYOUTS, device="cpu")
+    CompiledHierModel.from_host_chain(Ws[:1], Cs[:1], 1.0, device="cpu")
+    snap = profile_util.snapshot()
+    assert snap["spans"]["pecos.layouts"]["n"] == len(SIZES) + 1
+    assert snap["counters"] == {}
+
+
+def test_snapshot_is_a_copy_and_reset_zeroes():
+    with profile_util.span("a"):
+        pass
+    profile_util.count("b", 5)
+    snap = profile_util.snapshot()
+    snap["spans"]["a"]["n"] = 99
+    snap["counters"]["b"] = 99
+    again = profile_util.snapshot()
+    assert again["spans"]["a"]["n"] == 1 and again["counters"]["b"] == 5
+    profile_util.reset()
+    assert profile_util.snapshot() == {"spans": {}, "counters": {}}
+    assert again["spans"]["a"]["n"] == 1  # an earlier copy outlives reset
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_predictions_bit_equal_with_the_profiler_on_and_off(model, X, dense):
+    Q = X.toarray() if dense else X
+    off = model.predict(Q, batch_size=64)
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = model.predict(Q, batch_size=64)
+    np.testing.assert_array_equal(on.indptr, off.indptr)
+    np.testing.assert_array_equal(on.indices, off.indices)
+    np.testing.assert_array_equal(on.data, off.data)
