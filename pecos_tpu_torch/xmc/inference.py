@@ -15,10 +15,11 @@ over padded children tables, run eagerly on one torch device.
   the CUDA kernel on a GPU and its plain version on the CPU; dense queries
   (``single_layer_predict``, ``score_selected_labels``, the streaming
   ``MmapCompiledHierModel``) are scored by a gather of x at the weight ids.
-- Sparse queries travel to the device padded: as int32 ids + float32 values,
-  or packed into one uint16 wire buffer (``encode_wire_batch`` on the host,
-  ``decode_wire_batch`` on the device), whose layout and rounding are the JAX
-  package's bit for bit.
+- Sparse queries reach the device padded.  On the float32 wire a batch
+  travels as its CSR slice (``csr_rows``) and is padded on the device
+  (``pad_csr_on_device``); the packed wires carry the host-padded block in one
+  uint16 buffer (``encode_wire_batch`` on the host, ``decode_wire_batch`` on
+  the device), whose layout and rounding are the JAX package's bit for bit.
 - ``RealtimeSession`` serves small batches with one upload, one beam walk and
   one fetch per call; ``save_compiled_layers``/``load_compiled_layers`` keep
   the device layouts on disk in the JAX package's format.
@@ -214,6 +215,43 @@ def pad_query_rows(ids: np.ndarray, vals: np.ndarray, n_rows: int, D: int) -> Tu
     )
 
 
+def csr_rows(A: smat.csr_matrix, s: int, e: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Rows [s, e) of CSR ``A`` read from its own arrays, no scipy slice:
+    (indptr int64 from 0, indices int32, data float32), views where A's
+    dtypes already match.  The casts round as ``prepare_queries_padded``'s
+    assignment does."""
+    a, b = int(A.indptr[s]), int(A.indptr[e])
+    return (
+        np.subtract(A.indptr[s : e + 1], a, dtype=np.int64),
+        np.asarray(A.indices[a:b], np.int32),
+        np.asarray(A.data[a:b], np.float32),
+    )
+
+
+def pad_csr_on_device(
+    indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, n_rows: int, cap: int, D: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Padded queries built on the tensors' device from a CSR slice
+    (``csr_rows``'s arrays): m <= ``n_rows`` rows of at most ``cap`` nonzeros
+    -> (ids int32, vals float32), each (n_rows, cap), equal bit for bit to
+    ``pad_query_rows(*prepare_queries_padded(rows, cap=cap), n_rows, D)``.
+
+    Nonzero j of row r lands in slot j - indptr[r] of row r, in the CSR's
+    order (unsorted ids, duplicates and explicit zeros as they are); the
+    other slots, and the rows past m, hold id D+1 and value 0.  The nonzero
+    count is the host-known length of ``indices``, so nothing waits on the
+    device."""
+    m, nnz, dev = indptr.shape[0] - 1, indices.shape[0], indices.device
+    ids = torch.full((n_rows * cap,), D + 1, dtype=torch.int32, device=dev)
+    vals = torch.zeros(n_rows * cap, dtype=torch.float32, device=dev)
+    # flat slot of nonzero j of row r: j + (r * cap - indptr[r])
+    shift = torch.arange(0, m * cap, cap, device=dev) - indptr[:-1]
+    slot = torch.arange(nnz, device=dev) + shift.repeat_interleave(indptr.diff(), output_size=nnz)
+    ids.scatter_(0, slot, indices)
+    vals.scatter_(0, slot, data)
+    return ids.view(n_rows, cap), vals.view(n_rows, cap)
+
+
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on ``device``; to a GPU from pinned memory without blocking."""
     t = torch.from_numpy(a)
@@ -271,6 +309,11 @@ def _wire_value_words(val_dtype: str, cap: int) -> int:
     return {"float32": 2 * cap, "float16": cap, "bfloat16": cap, "uint8": cap // 2 + 1}[val_dtype]
 
 
+def _wire_width(D: int, cap: int, val_dtype: str) -> int:
+    """uint16 words a row of the wire buffer."""
+    return cap + 2 * _wire_hi_words(D, cap) + _wire_value_words(val_dtype, cap)
+
+
 def pack_query_ids(ids: np.ndarray, D: int) -> Tuple[np.ndarray, np.ndarray]:
     """Bit-pack padded (B, cap) int32 ids in [0, D+1]: returns (lo (B, cap)
     uint16, hi (B, nw) uint32).  Exact for any D < 2**31."""
@@ -318,7 +361,7 @@ def encode_wire_batch(ids: np.ndarray, vals: np.ndarray, D: int, val_dtype: str 
     lo, hi = pack_query_ids(ids, D)
     nw = hi.shape[1]
     voff = cap + 2 * nw
-    buf = np.empty((B, voff + _wire_value_words(val_dtype, cap)), np.uint16)
+    buf = np.empty((B, _wire_width(D, cap, val_dtype)), np.uint16)
     buf[:, :cap] = lo
     buf[:, cap : cap + nw] = hi & np.uint32(0xFFFF)
     buf[:, cap + nw : voff] = hi >> np.uint32(16)
@@ -681,15 +724,21 @@ class CompiledHierModel:
         names.  Sparse queries travel on the ``wire_value_dtype`` wire:
         "float32" (exact), "float16" or "bfloat16" (values rounded to 11 or 8
         mantissa bits) or "uint8" (a per-row step); ids are exact on every
-        wire.  Each batch is prepared on the host, uploaded from pinned memory
-        without blocking and run; results stay on the device until one
-        concatenation and one copy to the host at the end.
+        wire.  A sparse batch on the float32 wire is uploaded as its CSR slice
+        and padded on the device; on the packed wires, and for dense X, it is
+        padded on the host.  Uploads go from pinned memory without blocking;
+        results stay on the device until one concatenation and one copy to
+        the host at the end.
 
         The call runs in span ``pecos.predict``; each batch's padding,
         upload and beam walk in ``pecos.pad``, ``pecos.upload`` and
-        ``pecos.walk``, the fetch in ``pecos.fetch``.  Counters:
-        ``pecos.batches``, and for sparse batches ``pecos.query_nnz`` (real
-        nonzeros) and ``pecos.query_slots`` (padded slots uploaded).
+        ``pecos.walk`` (a batch padded on the device enters ``pecos.pad``
+        twice: the slice on the host, the padding's launches after the
+        upload), the fetch in ``pecos.fetch``.  Counters: ``pecos.batches``,
+        and for sparse batches ``pecos.pad.device`` (batches padded on the
+        device), ``pecos.upload_bytes`` (query bytes copied to the device),
+        ``pecos.query_nnz`` (real nonzeros) and ``pecos.query_slots`` (slots
+        of the padded block the walk reads).
         """
         with span("pecos.predict"):
             check_wire_value_dtype(wire_value_dtype)
@@ -704,14 +753,30 @@ class CompiledHierModel:
                 max_nnz = int(np.diff(A.indptr).max()) if N else 1
                 cap = max(64, 1 << max(0, max_nnz - 1).bit_length())
                 has_dense = self.uses_dense_queries(batch, cap)
+                # the packed wires encode the host-padded block; the float32
+                # wire's block is the CSR slice's, built where it is read
+                on_device = wire_value_dtype == "float32"
                 for s in range(0, N, batch):
-                    with span("pecos.pad"):
-                        ids, vals = pad_query_rows(*prepare_queries_padded(A[s : s + batch], cap=cap), batch, D)
-                    with span("pecos.upload"):
-                        qids, qvals = self.queries_to_device(ids, vals, wire_value_dtype)
+                    e = min(s + batch, N)
+                    if on_device:
+                        with span("pecos.pad"):
+                            rows = csr_rows(A, s, e)
+                        with span("pecos.upload"):
+                            rows_d = [_upload(a, self.device) for a in rows]
+                        with span("pecos.pad"):
+                            qids, qvals = pad_csr_on_device(*rows_d, batch, cap, D)
+                        nbytes = sum(a.nbytes for a in rows)
+                    else:
+                        with span("pecos.pad"):
+                            ids, vals = pad_query_rows(*prepare_queries_padded(A[s:e], cap=cap), batch, D)
+                        with span("pecos.upload"):
+                            qids, qvals = self.queries_to_device(ids, vals, wire_value_dtype)
+                        nbytes = 2 * batch * _wire_width(D, cap, wire_value_dtype)
                     count("pecos.batches")
-                    count("pecos.query_nnz", A.indptr[min(s + batch, N)] - A.indptr[s])
-                    count("pecos.query_slots", ids.size)
+                    count("pecos.pad.device", on_device)
+                    count("pecos.upload_bytes", nbytes)
+                    count("pecos.query_nnz", A.indptr[e] - A.indptr[s])
+                    count("pecos.query_slots", batch * cap)
                     with span("pecos.walk"):
                         labels, scores = self.predict_padded(
                             qids, qvals, beam_size=beam_size, only_topk=only_topk, pp_names=pp_names,

@@ -13,7 +13,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from pecos_tpu_torch.utils import profile_util
-from pecos_tpu_torch.xmc.inference import CompiledHierModel
+from pecos_tpu_torch.xmc.inference import CompiledHierModel, encode_wire_batch, pad_query_rows, prepare_queries_padded
 
 D = 128
 SIZES = [4, 32, 256]
@@ -100,8 +100,9 @@ def test_predict_spans_nest_in_a_profiler_trace(model, X, tmp_path):
     (top,) = by_name["pecos.predict"]
     (fetch,) = by_name["pecos.fetch"]
     assert inside(fetch, top)
-    for name in ("pecos.pad", "pecos.upload", "pecos.walk"):
-        assert len(by_name[name]) == 4 and all(inside(e, top) for e in by_name[name])
+    # a batch padded on the device enters pecos.pad twice: the host slice, then the launches
+    for name, n in (("pecos.pad", 8), ("pecos.upload", 4), ("pecos.walk", 4)):
+        assert len(by_name[name]) == n and all(inside(e, top) for e in by_name[name])
     for d in range(len(SIZES)):
         levels = by_name[f"pecos.level.{d}"]
         assert len(levels) == 4
@@ -116,11 +117,48 @@ def test_counters_of_a_call_with_a_short_last_batch(model, X):
     model.predict(X, batch_size=batch)
     snap = profile_util.snapshot()
     batches = -(-X.shape[0] // batch)
-    assert snap["counters"] == {"pecos.batches": batches, "pecos.query_nnz": X.nnz,
-                                "pecos.query_slots": batches * batch * cap}
-    for name in ("pecos.pad", "pecos.upload", "pecos.walk") + tuple(f"pecos.level.{d}" for d in range(len(SIZES))):
+    # each batch uploads its CSR slice: indptr int64, indices int32, data float32
+    assert snap["counters"] == {"pecos.batches": batches, "pecos.pad.device": batches,
+                                "pecos.upload_bytes": 8 * (X.shape[0] + batches) + 8 * X.nnz,
+                                "pecos.query_nnz": X.nnz, "pecos.query_slots": batches * batch * cap}
+    assert snap["spans"]["pecos.pad"]["n"] == 2 * batches
+    for name in ("pecos.upload", "pecos.walk") + tuple(f"pecos.level.{d}" for d in range(len(SIZES))):
         assert snap["spans"][name]["n"] == batches
     assert snap["spans"]["pecos.predict"]["n"] == snap["spans"]["pecos.fetch"]["n"] == 1
+
+
+@pytest.mark.parametrize("wire", ["float16", "bfloat16", "uint8"])
+def test_counters_of_the_packed_wires(model, X, wire):
+    """The packed wires pad on the host and upload one wire buffer a batch:
+    no batch padded on the device, the buffers' bytes uploaded, and the same
+    nonzeros and slots as the float32 wire."""
+    batch = 64
+    cap = max(64, 1 << (int(np.diff(X.indptr).max()) - 1).bit_length())
+    model.predict(X, batch_size=batch, wire_value_dtype=wire)
+    snap = profile_util.snapshot()
+    batches = -(-X.shape[0] // batch)
+    wire_bytes = sum(
+        encode_wire_batch(*pad_query_rows(*prepare_queries_padded(X[s : s + batch], cap=cap), batch, D), D, wire).nbytes
+        for s in range(0, X.shape[0], batch)
+    )
+    assert snap["counters"] == {"pecos.batches": batches, "pecos.pad.device": 0, "pecos.upload_bytes": wire_bytes,
+                                "pecos.query_nnz": X.nnz, "pecos.query_slots": batches * batch * cap}
+    assert all(snap["spans"][n]["n"] == batches for n in ("pecos.pad", "pecos.upload", "pecos.walk"))
+
+
+def test_device_padding_counts_every_float32_batch(model):
+    """Every sparse float32-wire batch is padded on the device and uploads
+    its slice's bytes, whatever its rows: empty ones, a row at the cap."""
+    rng = np.random.default_rng(5)
+    X = smat.random(300, D, density=0.05, format="csr", random_state=2, dtype=np.float32).tolil()
+    X[[3, 4, 10, 299]] = 0
+    X[10, rng.choice(D, size=64, replace=False)] = 1.0
+    X = X.tocsr()
+    model.predict(X, batch_size=128)
+    c = profile_util.snapshot()["counters"]
+    assert c["pecos.pad.device"] == c["pecos.batches"] == 3
+    assert c["pecos.upload_bytes"] == 8 * (300 + 3) + 8 * X.nnz
+    assert c["pecos.query_nnz"] == X.nnz and c["pecos.query_slots"] == 3 * 128 * 64
 
 
 def test_dense_queries_count_batches_and_no_slots(model, X):
