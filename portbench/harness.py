@@ -6,8 +6,10 @@ configuration, traffic mix, cell or per-layer metric lives in files of its
 own, found by the names in ``BENCHMARK.json``:
 
 - ``configs/<config>.json`` (the file ``BENCHMARK.json`` names), whose
-  ``model`` key names ``models/<model>.py`` (its ``Model`` and ``Program``),
-  ``models/<model>_reference.py`` and ``models/<model>_work.py``;
+  ``model`` key names a model kind: ``models/<model>.py`` (its ``Model``,
+  ``Program`` and queries), ``models/<model>_reference.py`` and
+  ``models/<model>_work.py``, which this module drives through the contract
+  that ``portbench/README.md`` writes out and never looks inside;
 - ``traffic/<mix>.json``: the mix's parameters, read by ``traffic.py``;
 - ``cells/<cell>.json``: the cell's own limits for the comparison, and the
   traffic parameters only it sets (an open loop's rate);
@@ -22,6 +24,7 @@ served, drawn from the seed.
 from __future__ import annotations
 
 import gc
+import hashlib
 import importlib
 import importlib.util
 import json
@@ -116,6 +119,17 @@ def metric_reader(name: str, root: str = ROOT) -> Callable[[Dict], Optional[floa
     return mod.read
 
 
+def digest(arrays) -> str:
+    """sha256 of a pool's arrays (each one's dtype, shape and bytes), so that
+    two runs of one seed can be seen to serve the same queries."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape};".encode())
+        h.update(memoryview(a).cast("B"))
+    return h.hexdigest()
+
+
 def peaks_for(kind: str) -> Optional[Dict]:
     return read_json(os.path.join(HERE, "peaks.json")).get(kind)
 
@@ -146,9 +160,10 @@ def _now() -> float:
 
 class Sampler:
     """A uniform sample, drawn from the seed, of the queries answered in the
-    window (reservoir sampling), and the longest query answered.  Each
-    call's answers are offered as they come and only the sampled rows are
-    copied, so the window keeps no answer beyond its call."""
+    window (reservoir sampling), and the longest query answered (by the
+    kind's ``row_sizes``).  Each call's answers are offered as they come and
+    only the sampled rows are copied, so the window keeps no answer beyond
+    its call."""
 
     def __init__(self, seed: int, size: int):
         from portbench import traffic
@@ -159,27 +174,28 @@ class Sampler:
         self.slots: List = []  # ((key, row), labels, values)
         self.longest = (-1, None)
 
-    @staticmethod
-    def _row(answer, r: int):
-        a, b = answer.indptr[r], answer.indptr[r + 1]
-        return answer.indices[a:b].astype(np.int64), answer.data[a:b].copy()
-
-    def offer(self, key, X, answer) -> None:
-        """The answer (CSR) to queries X (CSR) of the call or request ``key``."""
-        n = X.shape[0]
+    def offer(self, key, sizes: np.ndarray, answer) -> None:
+        """The answer (CSR, a row a query) to the queries of the call or
+        request ``key``, whose sizes are ``sizes``."""
+        n = len(sizes)
         t = np.arange(self.seen, self.seen + n)
         slot = np.where(t < self.size, t, self.rng.integers(0, t + 1))
         self.seen += n
+        end = np.cumsum(answer.getnnz(axis=1))
+
+        def row(r):
+            a, b = (end[r - 1] if r else 0), end[r]
+            return answer.indices[a:b].astype(np.int64), answer.data[a:b].copy()
+
         for r in np.nonzero(slot < self.size)[0].tolist():
-            item = ((key, r), *self._row(answer, r))
+            item = ((key, r), *row(r))
             if slot[r] == len(self.slots):
                 self.slots.append(item)
             else:
                 self.slots[slot[r]] = item
-        nnz = np.diff(X.indptr)
-        r = int(np.argmax(nnz))
-        if nnz[r] > self.longest[0]:
-            self.longest = (int(nnz[r]), ((key, r), *self._row(answer, r)))
+        r = int(np.argmax(sizes))
+        if sizes[r] > self.longest[0]:
+            self.longest = (int(sizes[r]), ((key, r), *row(r)))
 
     def items(self) -> List:
         keys = {it[0] for it in self.slots}
@@ -198,23 +214,27 @@ class ClosedLoop:
     def __init__(self, cell: Cell, model, program, seed: int, device, log, seconds: float):
         from portbench import traffic
 
-        mix, cfg = cell.mix, cell.cfg
+        kind, mix, cfg = cell.module(), cell.mix, cell.cfg
         n = int(mix["pool"])
         t = _now()
         lengths = traffic.permuted(traffic.quantile_lengths(n, mix["lengths"], cfg["mean_query_nnz"]), seed, "order")
-        self.pool = traffic.query_pool(n, lengths, model, seed, device)
+        pool = kind.queries(model, n, lengths, mix, seed, device)
         t_pool = _now() - t
-        self.blocks = [self.pool[a:b] for a, b in traffic.block_bounds(n, int(mix["block"]))]
+        t = _now()
+        pool_digest = digest(kind.arrays(pool))
+        t_digest = _now() - t
+        self.blocks = [pool[a:b] for a, b in traffic.block_bounds(n, int(mix["block"]))]
+        self.sizes = [kind.row_sizes(b) for b in self.blocks]
         self.batch = int(mix["batch_size"])
         self.trace_calls = int(mix["trace_calls"])
         self.program = program
-        caps = [max(64, 1 << max(0, int(np.diff(b.indptr).max()) - 1).bit_length()) for b in self.blocks]
         t = _now()
         for b in self.blocks:  # warm: every block's shapes (the first builds the program's layouts)
             program.predict(b)
-        log(f"pool: {n} queries in {t_pool!r} s, nnz mean {self.pool.nnz / n!r}, max "
-            f"{int(np.diff(self.pool.indptr).max())}; {len(self.blocks)} blocks of {mix['block']}, padded caps "
-            f"{caps}; layouts and warm-up {_now() - t!r} s")
+        sizes = np.concatenate(self.sizes)
+        log(f"pool: {n} queries in {t_pool!r} s, digest {pool_digest} in {t_digest!r} s, size mean "
+            f"{int(sizes.sum()) / n!r}, max {int(sizes.max())}; {len(self.blocks)} blocks of {mix['block']}, "
+            f"longest a block {[int(z.max()) for z in self.sizes]}; layouts and warm-up {_now() - t!r} s")
 
     def probe(self) -> int:
         """One more warm call, of the first block; returns the batches the
@@ -264,12 +284,12 @@ class ClosedLoop:
         if answered(out, X.shape[0]):
             rec["answered"] += X.shape[0]
             rec["batches"] += -(-X.shape[0] // self.batch)
-            sampler.offer(b, X, out)
+            sampler.offer(b, self.sizes[b], out)
         else:
             rec["failed"] += X.shape[0]
 
     def query(self, key, r: int):
-        return self.blocks[key][r]
+        return self.blocks[key][r : r + 1]
 
     def end_to_end(self, rec: Dict, names) -> Dict[str, float]:
         return {"qps": rec["answered"] / rec["window_s"]}
@@ -300,16 +320,16 @@ class OpenLoop:
     def __init__(self, cell: Cell, model, program, seed: int, device, log, seconds: float):
         from portbench import traffic
 
-        mix, cfg = cell.mix, cell.cfg
+        kind, mix, cfg = cell.module(), cell.mix, cell.cfg
         self.rate = float(mix["rate_per_s"])
         n = max(1, int(round(self.rate * seconds)))
         law = mix["lengths"]
         lengths = traffic.permuted(traffic.quantile_lengths(n, law, cfg["mean_query_nnz"]), seed, "order")
         warm_n = int(mix["warm_requests"])
         warm_len = traffic.quantile_lengths(warm_n, law, cfg["mean_query_nnz"])
-        both = traffic.query_pool(n + warm_n, np.concatenate([lengths, warm_len]), model, seed, device)
-        self.pool = both[:n]
+        both = kind.queries(model, n + warm_n, np.concatenate([lengths, warm_len]), mix, seed, device)
         self.requests = [both[i : i + 1] for i in range(n)]
+        self.sizes = kind.row_sizes(both[:n])
         self.due = traffic.arrival_times(n, seconds, seed)
         self.seconds = seconds
         self.drain_s = float(mix["drain_s"])
@@ -317,8 +337,8 @@ class OpenLoop:
         for i in range(n, n + warm_n):  # warm: the session's one shape
             self.session.predict(both[i : i + 1])
         self.warm_query = both[n : n + 1]
-        log(f"open loop: {n} Poisson arrivals at {self.rate!r}/s, "
-            f"nnz mean {self.pool.nnz / n!r}, max {int(np.diff(self.pool.indptr).max())}; "
+        log(f"open loop: {n} Poisson arrivals at {self.rate!r}/s, digest {digest(kind.arrays(both))}, "
+            f"size mean {int(self.sizes.sum()) / n!r}, max {int(self.sizes.max())}; "
             f"session batch {mix['batch_size']}, cap {mix['session_cap']}; {warm_n} warm requests")
         self.trace_requests = int(mix["trace_requests"])
         self.gap_requests = int(mix["gap_requests"])
@@ -351,7 +371,7 @@ class OpenLoop:
             rec["started"][i] = start
             if answered(out, 1):
                 rec["ok"][i] = True
-                sampler.offer(i, self.requests[i], out)
+                sampler.offer(i, self.sizes[i : i + 1], out)
 
     def probe(self) -> int:
         """One more warm request; returns the batches it is (one)."""
@@ -394,7 +414,7 @@ class OpenLoop:
         return np.where(rec["ok"], rec["end"], give_up) - rec["due"]
 
     def query(self, key, r: int):
-        return self.requests[key][r]
+        return self.requests[key][r : r + 1]
 
     def end_to_end(self, rec: Dict, names) -> Dict[str, float]:
         """Each declared ``p<q>_ms``: the q-th percentile of every request's latency."""
@@ -528,7 +548,7 @@ def run_cell(
     import torch
 
     cell = Cell(name, root)
-    models, reference, work = cell.module(), cell.module("_reference"), cell.module("_work")
+    kind, reference, work = cell.module(), cell.module("_reference"), cell.module("_work")
     cfg = cell.cfg
     log(f"portbench: cell {name}, config {cell.entry['config']}, traffic {cell.entry['traffic']}, seed {seed}, "
         f"window {seconds!r} s, trace {int(trace)}, wire {wire}")
@@ -537,9 +557,9 @@ def run_cell(
 
     t = _now()
     t_before = t - t_start
-    model = models.Model(cfg, seed, device)
+    model = kind.Model(cfg, seed, device)
     t_model = _now() - t
-    program = models.Program(model, device, wire=wire)
+    program = kind.Program(model, device, wire=wire)
     loop = LOOPS[cell.mix["loop"]]  # (the window's length sizes an open loop's arrivals)
     t = _now()
     runner = loop(cell, model, program, seed, device, log, seconds)
@@ -573,10 +593,8 @@ def run_cell(
     runner.report(rec, log)
     service = runner.service_s(rec)
     traced_queries = runner.traced_batches(rec) if trace else []
-    import scipy.sparse as smat
-
     items = sampler.items()
-    Q = smat.vstack([runner.query(*key) for key, _, _ in items], format="csr") if items else None
+    Q = kind.stack([runner.query(*key) for key, _, _ in items]) if items else None
     labels, values, bad = answers_of(items, int(cfg["only_topk"]), model.sizes[-1])
     # the window has closed: free the program's state before the reference runs
     del runner, program
@@ -584,10 +602,7 @@ def run_cell(
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = _now()
-    ref = reference.Reference(
-        model.ids, model.vals, model.parents, model.D, model.bias, int(cfg["beam_size"]),
-        int(cfg["only_topk"]), cfg["post_processor"], device,
-    )
+    ref = reference.build(model, cfg, device)
     if Q is not None:
         numbers = compare(ref, Q, labels, values, bad, cell.limits, SPREAD_QUERIES, work.leaf_spread)
     else:
@@ -618,7 +633,7 @@ def run_cell(
             "work": None,
         }
         if peaks is not None and traced_queries:
-            ctx["work"] = traced_work(ref, work, model, traced_queries, cfg, peaks)
+            ctx["work"] = work.traced(ref, model, traced_queries, cfg, peaks)
             log(f"traced work: K1 {ctx['work']['k1']}, whole predict {ctx['work']['predict']}; per level, "
                 f"candidates and distinct rows summed over batches: {ctx['work']['levels']}; leaf clusters each "
                 f"traced batch's beams reach: "
@@ -645,18 +660,3 @@ def run_cell(
     result["checks"] = checks
     return result
 
-
-def traced_work(ref, work, model, traced_queries, cfg, peaks) -> Dict:
-    """The work of the traced batches, from the reference's beams."""
-    import scipy.sparse as smat
-
-    Q = smat.vstack(traced_queries, format="csr")
-    beams = ref.beam_search(Q, keep_beams=True)["beams"]
-    children = [ref.children[d].cpu().numpy() for d in range(ref.depth)]
-    real = [(v != 0).sum(axis=1) for v in model.vals]
-    batches, s = [], 0
-    for q in traced_queries:
-        n = q.shape[0]
-        batches.append((np.diff(q.indptr), [b[s : s + n] for b in beams]))
-        s += n
-    return work.traced_work(batches, children, real, work.k1_levels(model.D, model.sizes), int(cfg["only_topk"]), peaks)

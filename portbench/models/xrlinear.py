@@ -1,6 +1,6 @@
 """XR-Linear predict: the model a configuration file with ``"model": "xrlinear"`` names.
 
-Three parts, each a class the harness drives:
+The parts the harness drives (``portbench/README.md`` has the contract):
 
 - ``Model``: the tree and the weights, made from the seed.  The tree follows
   ``Indexer.gen``'s public rule (``nr_splits``, ``max_leaf_size``): 2^depth
@@ -19,6 +19,10 @@ Three parts, each a class the harness drives:
 - ``Program``: the system under test, ``pecos_tpu_torch``'s
   ``XLinearModel``, built through its public constructor from scipy CSC
   matrices of those arrays, so the port makes its own layouts.
+- the queries: ``queries`` builds a pool, a (n, D) float32 CSR matrix of
+  TF-IDF rows (``traffic.query_pool``); ``row_sizes``, ``stack`` and
+  ``arrays`` are the rest of what the harness asks of a pool
+  (``portbench/README.md``).
 - the plain reference is ``xrlinear_reference.py`` beside this file; the
   operations and bytes of the work are counted in ``xrlinear_work.py``.
 """
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import gc
 import math
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 import scipy.sparse as smat
@@ -168,3 +172,22 @@ class Program:
     def free(self) -> None:
         self.xlm = None
         gc.collect()
+
+
+def queries(model: Model, n: int, lengths: np.ndarray, mix: Dict, seed: int, device) -> smat.csr_matrix:
+    """The pool: n TF-IDF queries with the row lengths the loop drew, in that order."""
+    return traffic.query_pool(n, lengths, model, seed, device)
+
+
+def row_sizes(Q: smat.csr_matrix) -> np.ndarray:
+    """Each query's nonzeros."""
+    return np.diff(Q.indptr)
+
+
+def stack(parts: Sequence[smat.csr_matrix]) -> smat.csr_matrix:
+    return smat.vstack(parts, format="csr")
+
+
+def arrays(Q: smat.csr_matrix) -> List[np.ndarray]:
+    """The arrays that hold the pool, for its digest."""
+    return [Q.indptr, Q.indices, Q.data]

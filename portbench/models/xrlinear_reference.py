@@ -160,3 +160,11 @@ class Reference:
             out.append(val.cpu().numpy())
         vals = np.concatenate(out) if out else np.zeros(lab.shape)
         return np.where(lab >= 0, vals, np.nan)
+
+
+def build(model, cfg: Dict, device: torch.device) -> Reference:
+    """The reference of ``model`` (``xrlinear.Model``): its arrays alone."""
+    return Reference(
+        model.ids, model.vals, model.parents, model.D, model.bias, int(cfg["beam_size"]),
+        int(cfg["only_topk"]), cfg["post_processor"], device,
+    )

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 import numpy as np
+import scipy.sparse as smat
 
 # The port's layout rule as of this benchmark (``pecos_tpu_torch/xmc/
 # inference.py``, DENSE_LAYOUT_MAX_ELEMENTS): a level whose dense (D+1, n)
@@ -110,3 +111,18 @@ def traced_work(batches, children, real, k1_mask, topk: int, peaks: Dict) -> Dic
     for acc in (k1, whole):
         acc["by"] = "+".join(sorted(acc["by"]))
     return {"k1": k1, "predict": whole, "batches": len(batches), "levels": levels, "leaf_spread": spread}
+
+
+def traced(ref, model, traced_queries, cfg: Dict, peaks: Dict) -> Dict[str, object]:
+    """The work of the traced batches (CSR, one a batch), from the
+    reference's beams over them."""
+    Q = smat.vstack(traced_queries, format="csr")
+    beams = ref.beam_search(Q, keep_beams=True)["beams"]
+    children = [ref.children[d].cpu().numpy() for d in range(ref.depth)]
+    real = [(v != 0).sum(axis=1) for v in model.vals]
+    batches, s = [], 0
+    for q in traced_queries:
+        n = q.shape[0]
+        batches.append((np.diff(q.indptr), [b[s : s + n] for b in beams]))
+        s += n
+    return traced_work(batches, children, real, k1_levels(model.D, model.sizes), int(cfg["only_topk"]), peaks)

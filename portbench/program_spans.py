@@ -39,8 +39,9 @@ def ms_per_batch(name: str) -> Optional[float]:
 
 
 def padded_share() -> Optional[float]:
-    """Percent of the uploaded query slots that are padding, 100 x (1 -
-    ``pecos.query_nnz`` / ``pecos.query_slots``), or None."""
+    """Percent of the slots of the padded query blocks the walk reads that
+    are padding, 100 x (1 - ``pecos.query_nnz`` / ``pecos.query_slots``), or
+    None."""
     snap = registry()
     slots = snap and snap["counters"].get("pecos.query_slots")
     if not slots:

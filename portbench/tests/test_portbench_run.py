@@ -26,3 +26,23 @@ def test_sound_run_is_correct(tiny_root, cell):
     want = {"tiny-batch": {"qps", "setup_s"}, "tiny-online": {"p50_ms", "p95_ms", "setup_s"}}[cell]
     assert set(res["metrics"]) == want
     assert all(m["value"] > 0 for m in res["metrics"].values())
+
+
+# Read from the harness before the model kinds took their queries, reference
+# and work count out of it: a tiny-batch run of one call (a window of 0 s)
+# at this seed, and the digest of its pool.
+PIN_SEED = 2**31 + 101
+PIN_DIGEST = "e56487cc92d78525fc37204b745a710731c1afec40151d02d89c7490a721e65c"
+PIN_CHECKS = {"failed": 0, "missing": 0, "label_miss": 0, "value_err": 5.770265114858771e-07}
+
+
+def test_the_tiny_cell_reads_as_pinned(tiny_root):
+    """The same pool bit for bit, the same sampled answers compared with the
+    same reference, the same numbers."""
+    lines = []
+    res = harness.run_cell("tiny-batch", PIN_SEED, 0.0, False, CPU, time.perf_counter(), root=tiny_root,
+                           log=lines.append)
+    assert res["attempted"] == 256 and res["correct"]
+    assert {k: c["value"] for k, c in res["checks"].items()} == PIN_CHECKS
+    assert any(s.startswith("pool: 1024 queries") and f"digest {PIN_DIGEST} " in s for s in lines), lines
+    assert any(s.startswith("reference: 256 sampled answers compared (254 ") for s in lines), lines
