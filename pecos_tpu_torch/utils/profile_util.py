@@ -11,19 +11,26 @@ profiler's events do.  With no profiler running a span costs one check of the
 profiler's state, a pair of clock reads and a dict add.  The registry's adds
 run under the interpreter lock without one of their own: exact where one
 thread records, and a concurrent add to the same name may be lost.
+
+``device_span(name, device)`` times a block on the card: two CUDA events on
+the device's current stream, with no synchronisation of its own.  Its
+microseconds reach counter ``name`` when ``settle()`` finds the second event
+complete, so call ``settle()`` after a fetch that has waited for the card.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
 # name -> [seconds, calls]
 _SPANS: Dict[str, list] = {}
 _COUNTERS: Dict[str, int] = {}
+# (counter name, start event, end event) of device spans not settled yet
+_PENDING: List[tuple] = []
 
 
 class span:
@@ -59,6 +66,45 @@ class span:
         return False
 
 
+class device_span:
+    """Context manager: CUDA events before and after the block on
+    ``device``'s current stream; ``settle()`` adds the microseconds between
+    them to counter ``name``.  On a device other than a CUDA one it records
+    nothing."""
+
+    __slots__ = ("name", "device", "_start")
+
+    def __init__(self, name: str, device: torch.device):
+        self.name, self.device = name, device
+
+    def __enter__(self) -> "device_span":
+        self._start = None
+        if self.device.type == "cuda":
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+            _PENDING.append((self.name, self._start, end))
+        return False
+
+
+def settle() -> None:
+    """Add each device span whose end event has completed to its counter, in
+    whole microseconds; the others stay pending.  It asks the events without
+    waiting for them."""
+    left = []
+    for name, start, end in _PENDING:
+        if end.query():
+            count(name, round(1e3 * start.elapsed_time(end)))
+        else:
+            left.append((name, start, end))
+    _PENDING[:] = left
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to counter ``name``."""
     _COUNTERS[name] = _COUNTERS.get(name, 0) + int(n)
@@ -77,6 +123,7 @@ def reset() -> None:
     """Zero the registry."""
     _SPANS.clear()
     _COUNTERS.clear()
+    _PENDING.clear()
 
 
 class MemInfo(object):

@@ -40,7 +40,7 @@ import scipy.sparse as smat
 import torch
 
 import pecos_tpu_torch
-from pecos_tpu_torch.utils import smat_util
+from pecos_tpu_torch.utils import profile_util, smat_util
 from pecos_tpu_torch.utils.torch_util import DeviceLike, resolve_device
 from pecos_tpu_torch.xmc.postprocessor import PostProcessor
 from . import network
@@ -403,15 +403,25 @@ class TransformerMatcher(pecos_tpu_torch.BaseClass):
 
     @staticmethod
     def concat_features(X_feat, emb: np.ndarray) -> smat.csr_matrix:
-        """[X_feat || l2-normalized embeddings]."""
-        emb_norm = smat_util.normalize(np.asarray(emb, np.float32), axis=1, norm="l2")
-        if X_feat is None:
-            return smat.csr_matrix(emb_norm)
-        return smat_util.hstack_csr([X_feat.tocsr(), smat.csr_matrix(emb_norm)])
+        """[X_feat || l2-normalized embeddings] (span ``pecos.concat``)."""
+        with profile_util.span("pecos.concat"):
+            emb_norm = smat_util.normalize(np.asarray(emb, np.float32), axis=1, norm="l2")
+            if X_feat is None:
+                return smat.csr_matrix(emb_norm)
+            return smat_util.hstack_csr([X_feat.tocsr(), smat.csr_matrix(emb_norm)])
 
     # ------------------------------------------------------------------ predict
+    @staticmethod
+    def _fetch(emb: torch.Tensor) -> np.ndarray:
+        """The embeddings on the host (span ``pecos.embed_fetch``); the
+        encoder's device time is settled once the copy has waited for it."""
+        with profile_util.span("pecos.embed_fetch"):
+            out = emb.cpu().numpy()
+        profile_util.settle()
+        return out
+
     def _embed(self, toks, batch_size: int = 256) -> np.ndarray:
-        return network.encode_batches(self.encoder, toks, self.device, batch_size).cpu().numpy()
+        return self._fetch(network.encode_batches(self.encoder, toks, self.device, batch_size))
 
     def _topk(self, emb: torch.Tensor, csr_codes, pred_params) -> smat.csr_matrix:
         """The top-k labels of the head's scores on the device, blocks of rows
@@ -464,7 +474,7 @@ class TransformerMatcher(pecos_tpu_torch.BaseClass):
     def _predict_tokens(self, toks, csr_codes, pred_params, X_feat=None) -> Tuple[smat.csr_matrix, np.ndarray]:
         emb_dev = network.encode_batches(self.encoder, toks, self.device)
         P = self._topk(emb_dev, csr_codes, pred_params)
-        emb = emb_dev.cpu().numpy()
+        emb = self._fetch(emb_dev)
         if self.concat_model is not None and pred_params.ensemble_method != "transformer-only":
             concat_pred = self.concat_model.predict(
                 self.concat_features(X_feat, emb), csr_codes=csr_codes, only_topk=pred_params.only_topk,

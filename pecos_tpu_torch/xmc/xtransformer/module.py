@@ -20,7 +20,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import scipy.sparse as smat
 
-from pecos_tpu_torch.utils import smat_util
+from pecos_tpu_torch.utils import profile_util, smat_util
 
 
 @dataclasses.dataclass
@@ -57,17 +57,19 @@ def tokenize_corpus(tokenizer, corpus: Sequence[str], truncate_length: int = 128
     """``{"input_ids", "attention_mask"}``, each (len(corpus), truncate_length)
     int32, padded to the full length.  With ``cache_dir`` the arrays are kept
     in an npz keyed by a hash of (tokenizer class, length, corpus) and read
-    back on the next call."""
-    path = None if cache_dir is None else _cache_path(tokenizer, corpus, truncate_length, cache_dir)
-    if path is not None and os.path.exists(path):
-        with np.load(path) as z:
-            return {"input_ids": z["input_ids"], "attention_mask": z["attention_mask"]}
-    enc = tokenizer(list(corpus), padding="max_length", truncation=True, max_length=truncate_length, return_tensors="np")
-    out = {k: np.asarray(enc[k]).astype(np.int32) for k in ("input_ids", "attention_mask")}
-    if path is not None:
-        os.makedirs(cache_dir, exist_ok=True)
-        np.savez(path, **out)
-    return out
+    back on the next call.  Span ``pecos.tokenize``."""
+    with profile_util.span("pecos.tokenize"):
+        path = None if cache_dir is None else _cache_path(tokenizer, corpus, truncate_length, cache_dir)
+        if path is not None and os.path.exists(path):
+            with np.load(path) as z:
+                return {"input_ids": z["input_ids"], "attention_mask": z["attention_mask"]}
+        enc = tokenizer(list(corpus), padding="max_length", truncation=True, max_length=truncate_length,
+                        return_tensors="np")
+        out = {k: np.asarray(enc[k]).astype(np.int32) for k in ("input_ids", "attention_mask")}
+        if path is not None:
+            os.makedirs(cache_dir, exist_ok=True)
+            np.savez(path, **out)
+        return out
 
 
 class XMCTextDataset:

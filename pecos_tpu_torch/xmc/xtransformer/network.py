@@ -22,6 +22,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from pecos_tpu_torch.utils import profile_util
 from pecos_tpu_torch.utils.torch_util import DeviceLike, resolve_device
 
 # model, config, then the tokenizer class names in order of preference: the
@@ -333,13 +334,20 @@ def pooled_embedding(encoder_outputs, attention_mask: torch.Tensor) -> torch.Ten
 
 def encode_batches(encoder, toks: dict, device: DeviceLike, batch_size: int = 256) -> torch.Tensor:
     """Pooled embeddings (N, H) of tokenized text on ``device`` (eval mode,
-    no gradient), ``batch_size`` rows a forward."""
+    no gradient), ``batch_size`` rows a forward.  Records span
+    ``pecos.encode``, the card's time in ``pecos.encode.device_us`` (read by
+    ``profile_util.settle()`` after the fetch), and counters
+    ``pecos.encode.texts``, ``.tokens`` (unmasked) and ``.slots`` (texts x
+    the padded length)."""
     device = resolve_device(device)
     ids, am = toks["input_ids"], toks["attention_mask"]
+    profile_util.count("pecos.encode.texts", ids.shape[0])
+    profile_util.count("pecos.encode.tokens", int(am.sum()))
+    profile_util.count("pecos.encode.slots", ids.size)
     out = []
     training = encoder.training
     encoder.eval()
-    with torch.no_grad():
+    with torch.no_grad(), profile_util.span("pecos.encode"), profile_util.device_span("pecos.encode.device_us", device):
         for s in range(0, ids.shape[0], batch_size):
             ii = torch.from_numpy(np.ascontiguousarray(ids[s : s + batch_size], np.int64)).to(device)
             mm = torch.from_numpy(np.ascontiguousarray(am[s : s + batch_size], np.int64)).to(device)

@@ -214,3 +214,127 @@ def test_predictions_bit_equal_with_the_profiler_on_and_off(model, X, dense):
     np.testing.assert_array_equal(on.indptr, off.indptr)
     np.testing.assert_array_equal(on.indices, off.indices)
     np.testing.assert_array_equal(on.data, off.data)
+
+
+# ---------------------------------------------------------------------------
+# XR-Transformer's text path: tokenize, encode, fetch, concat
+# ---------------------------------------------------------------------------
+
+H = 16  # the encoder's width: the ranker's last H features are the embedding
+TEXT_LENGTH = 8
+
+
+@pytest.fixture(scope="module")
+def xtf(tmp_path_factory):
+    """An XTransformer over a one-layer BERT of width H and the chain's
+    ranker, whose D features are D - H TF-IDF ones and the H embedding
+    columns."""
+    from pecos_tpu_torch.xmc import HierarchicalMLModel, MLModel
+    from pecos_tpu_torch.xmc.xlinear import XLinearModel
+    from pecos_tpu_torch.xmc.xtransformer import TransformerMatcher, XTransformer, network
+
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"w{i}" for i in range(40)]
+    path = tmp_path_factory.mktemp("vocab") / "vocab.txt"
+    path.write_text("\n".join(vocab) + "\n")
+    encoder = network.random_encoder("bert", dict(hidden_size=H, num_hidden_layers=1, num_attention_heads=2,
+                                                  intermediate_size=32, vocab_size=len(vocab),
+                                                  max_position_embeddings=16), seed=3)
+    matcher = TransformerMatcher(encoder, network.wordpiece_tokenizer(str(path)), network.XMCHead.random(SIZES[-2], H),
+                                 pred_params=dict(truncate_length=TEXT_LENGTH), device="cpu")
+    Ws, Cs = make_chain(seed=4)
+    ranker = XLinearModel(HierarchicalMLModel([MLModel(W, C, bias=1.0, device="cpu") for W, C in zip(Ws, Cs)]))
+    return XTransformer(matcher, ranker)
+
+
+@pytest.fixture
+def texts():
+    """Texts of 0 to 11 words: those over TEXT_LENGTH - 2 words are truncated."""
+    rng = np.random.default_rng(7)
+    return [" ".join(f"w{i}" for i in rng.integers(0, 40, n)) for n in rng.integers(0, 12, 30)]
+
+
+def test_text_spans_and_counters_of_xtransformer_predict(xtf, texts):
+    X_feat = smat.random(len(texts), D - H, density=0.1, format="csr", random_state=3, dtype=np.float32)
+    tokens = sum(min(len(t.split()) + 2, TEXT_LENGTH) for t in texts)
+    for calls in (1, 2):
+        xtf.predict(texts, X_feat=X_feat, only_topk=5, beam_size=2)
+        snap = profile_util.snapshot()
+        for name in ("pecos.tokenize", "pecos.encode", "pecos.embed_fetch", "pecos.concat", "pecos.predict"):
+            assert snap["spans"][name]["n"] == calls, name
+        c = snap["counters"]
+        assert c["pecos.encode.texts"] == calls * len(texts)
+        assert c["pecos.encode.tokens"] == calls * tokens
+        assert c["pecos.encode.slots"] == calls * len(texts) * TEXT_LENGTH
+        assert "pecos.encode.device_us" not in c  # no card: no device time
+
+
+def test_text_spans_follow_each_other_in_a_profiler_trace(xtf, texts, tmp_path):
+    X_feat = smat.random(len(texts), D - H, density=0.1, format="csr", random_state=3, dtype=np.float32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        xtf.predict(texts, X_feat=X_feat, only_topk=5, beam_size=2)
+    ev = {}
+    for e in annotations(prof, tmp_path):
+        ev.setdefault(e["name"], []).append(e)
+    order = ["pecos.tokenize", "pecos.encode", "pecos.embed_fetch", "pecos.concat", "pecos.predict"]
+    assert all(len(ev[name]) == 1 for name in order)
+    for a, b in zip(order, order[1:]):
+        assert ev[a][0]["ts"] + ev[a][0]["dur"] <= ev[b][0]["ts"], (a, b)
+
+
+def test_encode_batches_counts_every_forward_of_one_call(xtf, texts):
+    from pecos_tpu_torch.xmc.xtransformer import network
+
+    matcher = xtf.text_encoder
+    toks = {k: v for k, v in matcher.tokenizer(texts, padding="max_length", truncation=True, max_length=TEXT_LENGTH,
+                                                return_tensors="np").items() if k in ("input_ids", "attention_mask")}
+    network.encode_batches(matcher.encoder, toks, "cpu", batch_size=7)
+    snap = profile_util.snapshot()
+    assert snap["spans"]["pecos.encode"]["n"] == 1
+    assert snap["counters"] == {"pecos.encode.texts": len(texts), "pecos.encode.tokens": int(toks["attention_mask"].sum()),
+                                "pecos.encode.slots": len(texts) * TEXT_LENGTH}
+
+
+class FakeEvent:
+    """A CUDA event's timing surface: ``record`` stamps a clock that moves
+    1.5 ms a record; ``query`` says whether the card has reached it."""
+
+    made = []
+    clock = 0.0
+
+    def __init__(self, enable_timing=False):
+        self.t, self.done = None, False
+        FakeEvent.made.append(self)
+
+    def record(self, stream=None):
+        FakeEvent.clock += 1.5
+        self.t = FakeEvent.clock
+
+    def query(self):
+        return self.done
+
+    def elapsed_time(self, end):
+        assert self.done and end.done
+        return end.t - self.t
+
+
+def test_device_span_settles_only_events_the_card_has_reached(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    FakeEvent.made.clear()
+    with profile_util.device_span("dev_us", torch.device("cuda", 0)):
+        pass
+    start, end = FakeEvent.made
+    start.done = True
+    profile_util.settle()
+    assert profile_util.snapshot()["counters"] == {}  # the end not reached: nothing read, nothing waited for
+    end.done = True
+    profile_util.settle()
+    profile_util.settle()
+    assert profile_util.snapshot()["counters"] == {"dev_us": 1500}
+
+
+def test_device_span_records_nothing_off_the_card():
+    with profile_util.device_span("dev_us", torch.device("cpu")):
+        pass
+    profile_util.settle()
+    assert profile_util.snapshot() == {"spans": {}, "counters": {}}
