@@ -25,12 +25,17 @@ non-zero:
              options' shapes of phase 15 (the exact rescore after a
              PQ-guided walk, the Alg-4 prune's distances and its lazy
              selection), a query above one hash table's capacity, an odd P,
-             and duplicate query ids.
-4. timing  — K1 by row id at the seven shapes of the main paths (predict,
+             duplicate query ids, and the benchmark's wiki500k-batch levels
+             (N 1,024 x K 620 and K 160 at P 512, queries of lognormal
+             lengths padded to 4,096 slots, so most 512-slot chunks hold
+             pads alone and the launch spreads a query over more blocks).
+4. timing  — K1 by row id at the nine shapes of the main paths (predict,
              batch 1, HNSW gather-dots, lazy selection, rescore, prune
-             distances, prune selection), the L2 flushed before each launch:
-             kernel, plain version and a torch.searchsorted composite,
-             beside the bound (bytes over 3.35 TB/s).
+             distances, prune selection, wiki500k-batch's label level and
+             level 3), the L2 flushed before each launch: kernel, plain
+             version (where its compare block is small enough to time) and
+             a torch.searchsorted composite, beside the bound (bytes over
+             3.35 TB/s).
 5. predict — XLinearModel.predict of 8,192 sparse queries through a random
              model of the Wiki-500K geometry (the repo's bench.py model:
              L=524,288, D=262,144, 64 weights per label, 16-way tree, beam 10,
@@ -176,18 +181,37 @@ def make_k1_case(N, K, P, Qn, D_feat, pad, seed):
     weight ids reach D_feat (the bias id); with ``pad`` some rows end in query
     pad ids D_feat+1 (value 0) and zero-valued weight pad slots (id 0), as the
     predict path pads them; with ``pad="hnsw"`` both sides end in SPARSE_PAD_ID
-    (1<<30, value 0), as the HNSW graph's sparse rows are padded."""
+    (1<<30, value 0), as the HNSW graph's sparse rows are padded; with
+    ``pad="lognormal"`` only the queries are padded, each past a length of
+    lognormal_lengths'."""
     rng = np.random.default_rng(seed)
     qids = unique_rows(rng, N, Qn, D_feat)
     qvals = rng.standard_normal((N, Qn)).astype(np.float32)
     wi = unique_rows(rng, N * K, P, D_feat + 1).reshape(N, K, P)
     wv = rng.standard_normal((N, K, P)).astype(np.float32)
-    if pad:
+    if pad == "lognormal":
+        qpad = np.arange(Qn)[None, :] >= lognormal_lengths(rng, N, Qn)[:, None]
+        qids[qpad], qvals[qpad] = D_feat + 1, 0.0
+    elif pad:
         qpad = np.arange(Qn)[None, :] >= (Qn - rng.integers(0, Qn // 2 + 1, size=N))[:, None]
         qids[qpad], qvals[qpad] = SPARSE_PAD_ID if pad == "hnsw" else D_feat + 1, 0.0
         wpad = np.arange(P)[None, None, :] >= (P - rng.integers(0, P // 2 + 1, size=(N, K)))[:, :, None]
         wi[wpad], wv[wpad] = SPARSE_PAD_ID if pad == "hnsw" else 0, 0.0
     return qids, qvals, np.concatenate([wi, wv.view(np.int32)], axis=-1)
+
+
+# wiki500k-batch's query lengths (portbench/traffic/batch.json, its
+# configuration's mean): lognormal, log-sigma 0.8, mean 387 nonzeros
+WIKI_QUERY_NNZ, WIKI_QUERY_SIGMA = 387, 0.8
+
+
+def lognormal_lengths(rng, n, hi, mean=WIKI_QUERY_NNZ, sigma=WIKI_QUERY_SIGMA):
+    """``n`` query lengths in [1, hi]: the (i + 1/2) / n quantiles of a
+    lognormal of this mean and log-sigma, in an order drawn from ``rng``
+    (at n 1,024 and hi 4,096: 77% fit one 512-slot chunk, ~7 pass 2,048)."""
+    z = np.array([statistics.NormalDist().inv_cdf((i + 0.5) / n) for i in range(n)])
+    raw = np.exp(np.log(mean) - sigma * sigma / 2 + sigma * z)
+    return rng.permutation(np.clip(np.rint(raw), 1, hi).astype(np.int64))
 
 
 # the sparse HNSW corpus's row cap (phase 11c: at most 68 nonzeros a row,
@@ -221,10 +245,19 @@ K1_OPTION_SHAPES = [
     ("hnsw prune dists", 21845, 128, ANN_SPARSE_P, ANN_SPARSE_P, "perm", "hnsw", False, 100_000),
     ("hnsw prune select", 21845, 64, ANN_SPARSE_P, ANN_SPARSE_P, "select", "hnsw", False, 100_000),
 ]
+# wiki500k-batch's K1 levels above one chunk, as K1_ROW_CASES: the label
+# level and level 3 (level 2 is level 3's shape over 512 rows)
+K1_WIKI_SHAPES = [
+    ("wiki500k-batch label level", 1024, 620, 512, 4096, "parents", "lognormal", True, 8192 * 62),
+    ("wiki500k-batch level 3", 1024, 160, 512, 4096, "parents", "lognormal", True, 512 * NR_SPLITS),
+]
 # K1 by row id: (name, N, K, P, Qn, layout, pad, bias, table rows), as the
 # callers pass rows, then a query above one table's capacity (512), an odd P
-# and duplicate query ids. layout "parents": the rows of 10 beam parents' 16
-# children each in a parent_packed table of 4,096 parents, some -1; "perm":
+# and duplicate query ids, then wiki500k-batch's label level (8,192 parents
+# of 62 children, rows of 511 features and the bias) and its level 3 (512
+# parents of 16), its queries padded to 4,096 past lognormal lengths.
+# layout "parents": the rows of BEAM parents' K / BEAM children each in a
+# parent_packed table, some -1; "perm":
 # a random permutation of the table's rows; "select": the lazy selection's
 # index into the HNSW corpus's rows, -1 past each row's count; "dups":
 # random rows
@@ -237,6 +270,7 @@ K1_ROW_CASES = [
     ("above one table", 8, 37, 64, 5000, "perm", True, True, 8 * 37),
     ("odd P", 5, 7, 13, 600, "perm", True, True, 5 * 7),
     ("duplicate query ids", 64, 160, 64, 256, "dups", False, True, 20_000),
+    *[(f"{name} by parent rows", *shape) for name, *shape in K1_WIKI_SHAPES],
 ]
 # the timed shapes: (name, N, K, P, Qn, layout, pad, bias, table rows): the
 # last plabel layer's parent_packed (32,768 parents x 16 children), and the
@@ -247,10 +281,14 @@ K1_TIMED = [
     ("hnsw gather-dots", 2048, 256, ANN_SPARSE_P, ANN_SPARSE_P, "perm", "hnsw", False, 100_000),
     ("hnsw lazy-select", 2048, 32, ANN_SPARSE_P, ANN_SPARSE_P, "select", "hnsw", False, 100_000),
     *K1_OPTION_SHAPES,
+    *K1_WIKI_SHAPES,
 ]
-# query rows per call of K1's plain version: its (rows, K, P, 64) compare
-# block stays under ~16 GB at K 256, P 96
+# query rows per call of K1's plain version at K 256, P 96: its (rows, K, P,
+# 64) compare block stays under ~16 GB, and at other K x P as many elements
 PLAIN_ROWS_CHUNK = 2048
+# time_k1 times the plain version only where its compare elements (N x K x
+# P x Qn) stay under this: ~0.1 s a call at most, not ~10 s
+PLAIN_TIMED_ELEMENTS = 1 << 36
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet, at 700 W
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, the same sheet
 L2_FLUSH_BYTES = 256 << 20  # written between timed launches: the 50 MB L2 starts cold
@@ -452,7 +490,7 @@ def make_rows_case(device, N, K, P, Qn, layout, pad, bias, R, seed):
     gen = torch.Generator(device).manual_seed(seed)
     ids = torch.randint(0, D_feat + 1, (R, P), generator=gen, device=device, dtype=torch.int32)
     vals = torch.randn((R, P), generator=gen, device=device)
-    if pad:
+    if pad and pad != "lognormal":
         tail = torch.randint(0, P // 2 + 1, (R, 1), generator=gen, device=device)
         empty = torch.arange(P, device=device)[None, :] >= P - tail
         ids[empty], vals[empty] = SPARSE_PAD_ID if pad == "hnsw" else 0, 0.0
@@ -461,8 +499,9 @@ def make_rows_case(device, N, K, P, Qn, layout, pad, bias, R, seed):
         ids[gone], vals[gone] = 0, 0.0
     table = torch.cat([ids, vals.view(torch.int32)], dim=1)
     if layout == "parents":
-        parents = torch.randint(0, R // NR_SPLITS, (N, K // NR_SPLITS), generator=gen, device=device)
-        rows = (parents[:, :, None] * NR_SPLITS + torch.arange(NR_SPLITS, device=device)).reshape(N, K)
+        kids = K // BEAM
+        parents = torch.randint(0, R // kids, (N, BEAM), generator=gen, device=device)
+        rows = (parents[:, :, None] * kids + torch.arange(kids, device=device)).reshape(N, K)
         rows[torch.rand((N, K), generator=gen, device=device) < 0.02] = -1
     elif layout == "perm":
         perm = torch.randperm(R, generator=gen, device=device)
@@ -477,13 +516,14 @@ def make_rows_case(device, N, K, P, Qn, layout, pad, bias, R, seed):
 
 
 def plain_rows(qids, qvals, table, rows, *bias_args):
-    """K1's plain version by row id, PLAIN_ROWS_CHUNK query rows a call
-    (each row's scores depend on its row alone)."""
+    """K1's plain version by row id, PLAIN_ROWS_CHUNK query rows a call at
+    K x P = 256 x 96, fewer at wider K x P (each row's scores depend on its
+    row alone)."""
     import torch
 
     from pecos_tpu_torch.ops.intersect import intersect_scores_rows_reference
 
-    C = PLAIN_ROWS_CHUNK
+    C = max(1, PLAIN_ROWS_CHUNK * 256 * ANN_SPARSE_P // (rows.shape[1] * (table.shape[1] // 2)))
     return torch.cat([intersect_scores_rows_reference(qids[s : s + C], qvals[s : s + C], table, rows[s : s + C], *bias_args)
                       for s in range(0, qids.shape[0], C)])
 
@@ -559,9 +599,12 @@ def k1_bound(v, table, rows, P):
 
 def time_k1(device, name, N, K, P, Qn, layout, pad, bias, R, iters):
     """K1 by row id at one of the K1_TIMED shapes: median ms of the kernel,
-    the plain version and the searchsorted composite, in turns, each launch
-    timed with CUDA events after a write of L2_FLUSH_BYTES, all queued behind
-    a sleep of the card; with the bound."""
+    the plain version (None above PLAIN_TIMED_ELEMENTS) and the searchsorted
+    composite, in turns, each launch timed with CUDA events after a write of
+    L2_FLUSH_BYTES, all queued behind a sleep of the card; with the bound.
+    The composite is checked against the plain version, or where that is not
+    timed against the kernel (which check_k1_rows holds to the plain version
+    at these shapes)."""
     import torch
 
     from pecos_tpu_torch.ops.intersect import intersect_scores_rows
@@ -572,15 +615,19 @@ def time_k1(device, name, N, K, P, Qn, layout, pad, bias, R, iters):
         "plain": lambda: plain_rows(q, v, table, rows, *bias_args),
         "composite": lambda: k1_composite(q, v, table, rows, *bias_args),
     }
+    if N * K * P * Qn > PLAIN_TIMED_ELEMENTS:
+        del fns["plain"]
     outs = {key: fn() for key, fn in fns.items()}  # warm
-    err = (outs["composite"] - outs["plain"]).abs().max().item()
-    if not err <= 1e-4 * max(outs["plain"].abs().max().item(), 1.0):
-        raise RuntimeError(f"K1 timing {name}: the composite differs from the plain version by {err!r}")
-    del outs
+    ref = outs.get("plain", outs["kernel"])
+    err = (outs["composite"] - ref).abs().max().item()
+    if not err <= 1e-4 * max(ref.abs().max().item(), 1.0):
+        what = "plain version" if "plain" in fns else "kernel"
+        raise RuntimeError(f"K1 timing {name}: the composite differs from the {what} by {err!r}")
+    del outs, ref
     ms = time_calls(device, fns, iters)
     bound_ms, bound_by, n_bytes = k1_bound(v, table, rows, P)
     return {
-        "N": N, "K": K, "P": P, "Qn": Qn, "table_rows": R, "ms": ms["kernel"], "plain_ms": ms["plain"],
+        "N": N, "K": K, "P": P, "Qn": Qn, "table_rows": R, "ms": ms["kernel"], "plain_ms": ms.get("plain"),
         "composite_ms": ms["composite"], "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
         "share": bound_ms / ms["kernel"],
     }

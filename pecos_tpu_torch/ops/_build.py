@@ -61,11 +61,11 @@ def load_library() -> ctypes.CDLL:
         build()
         lib = ctypes.CDLL(LIB_PATH)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        # qids, qvals, table, R, rows (None: the block form), out; K, P, Qn,
-        # chunk, log2_slots, lanes, per_block, blocks_per_row, grid,
-        # shared_bytes, has_bias, bias_id; bias_val; stream
+        # qids, qvals, table, R, rows (None: the block form), out, passes
+        # (None: not counted); K, P, Qn, chunk, log2_slots, lanes, per_block,
+        # blocks_per_row, grid, shared_bytes, has_bias, bias_id; bias_val; stream
         lib.pecos_intersect_scores.argtypes = [
-            vp, vp, vp, ctypes.c_int64, vp, vp, *([ci] * 12), ctypes.c_float, vp
+            vp, vp, vp, ctypes.c_int64, vp, vp, vp, *([ci] * 12), ctypes.c_float, vp
         ]
         lib.pecos_intersect_scores.restype = ci
         lib.pecos_cuda_error_string.argtypes = [ci]

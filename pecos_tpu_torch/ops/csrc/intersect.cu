@@ -30,8 +30,18 @@
 //    values).  A repeated id adds into its slot (atomicCAS, then atomicAdd),
 //    so g is the same sum as the reference's, in another order.  A query
 //    longer than one table (the wrapper's chunk) is taken in chunks: the
-//    table is rebuilt and the rows probed again for each, the partial scores
-//    added into out by the lane that owns the candidate.
+//    table is rebuilt for each, and the rows are probed again for each chunk
+//    that staged an entry, the partial scores added into out by the lane
+//    that owns the candidate.  A thread that stages an entry sets a flag in
+//    shared memory, read after the barrier that follows the inserts; a chunk
+//    past the first that staged none (pads alone) reads no row, since its
+//    pass would add exact zeros (for finite weights: only the sign of a zero
+//    score may differ).  The first chunk always runs and writes out with the
+//    bias term.  The flag and the block's count of passes live in shared
+//    memory, not in registers, which the probe loop needs (32 a thread);
+//    launches whose queries fit one chunk pay for them too, 1-4% on an H100.
+//    So a query padded to many chunks costs one pass over its rows for each
+//    chunk that holds a nonzero, wherever in the row its nonzeros sit.
 // 2. Rows read by id.  The kernel takes the row index and reads the table in
 //    place, so no (N, K, 2P) block is written by a gather and read again.
 //    Each block copies its candidates' row offsets into shared memory while
@@ -49,7 +59,13 @@
 // The launch plan (table slots, chunk, lanes, candidates a block, grid,
 // shared bytes) comes from the wrapper's _launch_plan.  The kernel allocates
 // nothing and does not synchronise; the C entry point returns
-// cudaGetLastError() for the caller.
+// cudaGetLastError() for the caller.  Where `passes` is not null (an int64
+// on the card), a block that probed chunks past its first adds their number
+// to it, once, by thread 0; the wrapper counts the rest on the host (every
+// block's first pass, and the ceil(Qn / chunk) chunks each block had).  So
+// only blocks of queries longer than one chunk add, and a launch of one
+// chunk adds nothing: a few thousand blocks adding to one address would
+// queue on it.
 
 #include <cuda_runtime.h>
 
@@ -61,7 +77,7 @@ namespace {
 constexpr int kThreads = 256;  // threads a block; must equal the wrapper's _THREADS
 constexpr int kMinBlocks = 8;  // blocks an SM must hold: the register budget (32 a thread)
 constexpr int kSlots = 2;      // weight slots a lane reads per candidate per pass
-constexpr int kCands = 2;      // candidates a group loads before probing
+constexpr int kCands = 2;      // candidates a group loads before probing; the wrapper's _CANDS
 constexpr int kEmpty = -1;     // key of an empty hash slot
 
 __device__ __forceinline__ unsigned slot_of(int id, int shift) {
@@ -109,9 +125,9 @@ __device__ __forceinline__ float group_sum(float v, int lanes) {
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 intersect_scores_kernel(const int* __restrict__ qids, const float* __restrict__ qvals,
                         const int* __restrict__ table, int64_t R, const int64_t* __restrict__ rows,
-                        float* __restrict__ out, int K, int P, int Qn, int chunk, int log2_slots,
-                        int lanes, int per_block, int blocks_per_row, int has_bias, int bias_id,
-                        float bias_val) {
+                        float* __restrict__ out, unsigned long long* __restrict__ passes, int K,
+                        int P, int Qn, int chunk, int log2_slots, int lanes, int per_block,
+                        int blocks_per_row, int has_bias, int bias_id, float bias_val) {
   // shared: the hash table (key, value bits), then the block's row offsets
   extern __shared__ int2 s_kv[];
   const int n_slots = 1 << log2_slots;
@@ -136,14 +152,20 @@ intersect_scores_kernel(const int* __restrict__ qids, const float* __restrict__ 
     s_off[c] = (r < 0 || r >= R) ? -1 : r * row_len;
   }
 
+  __shared__ int s_staged;  // whether any thread staged an entry of this chunk
+  __shared__ int s_probed;  // chunks whose rows this block probed (thread 0's count)
+  if (threadIdx.x == 0) s_probed = 0;
   for (int q0 = 0; q0 < max(Qn, 1); q0 += chunk) {
     const int qn = min(chunk, Qn - q0);
     __syncthreads();  // the previous chunk's probes are done
+    if (threadIdx.x == 0) s_staged = 0;
     for (int t = threadIdx.x; t < n_slots; t += kThreads) s_kv[t] = make_int2(kEmpty, 0);
     __syncthreads();
+    bool staged = false;
     for (int t = threadIdx.x; t < qn; t += kThreads) {
       const float v = qv_row[q0 + t];
       if (v == 0.f) continue;
+      staged = true;
       const int id = qi_row[q0 + t];
       unsigned h = slot_of(id, shift);
       while (true) {
@@ -156,7 +178,12 @@ intersect_scores_kernel(const int* __restrict__ qids, const float* __restrict__ 
         h = (h + 1) & mask;
       }
     }
+    // a chunk of pads alone adds exact zeros: skip its pass, bar the first,
+    // which writes out (every thread reads the same flag after the barrier)
+    if (staged) s_staged = 1;
     __syncthreads();
+    if (s_staged == 0 && q0 > 0) continue;
+    if (threadIdx.x == 0) ++s_probed;
 
     // every group runs the same trip count, so the shuffles see whole warps
     for (int c0 = 0; c0 < count; c0 += kCands * n_groups) {
@@ -201,15 +228,19 @@ intersect_scores_kernel(const int* __restrict__ qids, const float* __restrict__ 
       }
     }
   }
+  if (passes != nullptr && threadIdx.x == 0 && s_probed > 1) {
+    atomicAdd(passes, static_cast<unsigned long long>(s_probed - 1));
+  }
 }
 
 }  // namespace
 
 extern "C" int pecos_intersect_scores(const void* qids, const void* qvals, const void* table,
-                                      int64_t R, const void* rows, void* out, int K, int P,
-                                      int Qn, int chunk, int log2_slots, int lanes, int per_block,
-                                      int blocks_per_row, int grid, int shared_bytes,
-                                      int has_bias, int bias_id, float bias_val, void* stream) {
+                                      int64_t R, const void* rows, void* out, void* passes, int K,
+                                      int P, int Qn, int chunk, int log2_slots, int lanes,
+                                      int per_block, int blocks_per_row, int grid,
+                                      int shared_bytes, int has_bias, int bias_id, float bias_val,
+                                      void* stream) {
   if (grid == 0) return 0;
   // shared_bytes stays within the 48 KB a launch may take without
   // cudaFuncSetAttribute (the wrapper caps the table at 32 KB and the
@@ -217,8 +248,8 @@ extern "C" int pecos_intersect_scores(const void* qids, const void* qvals, const
   intersect_scores_kernel<<<grid, kThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(qids), static_cast<const float*>(qvals),
       static_cast<const int*>(table), R, static_cast<const int64_t*>(rows),
-      static_cast<float*>(out), K, P, Qn, chunk, log2_slots, lanes, per_block, blocks_per_row,
-      has_bias, bias_id, bias_val);
+      static_cast<float*>(out), static_cast<unsigned long long*>(passes), K, P, Qn, chunk,
+      log2_slots, lanes, per_block, blocks_per_row, has_bias, bias_id, bias_val);
   return static_cast<int>(cudaGetLastError());
 }
 

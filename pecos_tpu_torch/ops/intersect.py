@@ -19,6 +19,13 @@ PyTorch version; CUDA tensors go to the CUDA kernel, or the call raises.
 There is no other switch.  Both count the kernel's launches in
 ``intersect_scores.launches``.
 
+A query longer than one hash table is staged in chunks, and the kernel reads
+its candidate rows once for the first chunk and once for each later chunk
+that holds a nonzero: at most ``LaunchPlan.chunks`` passes a block.
+``take_pass_counts`` says how many, of how many chunks, per device: the card
+counts the passes past each block's first, the wrapper the rest; the plain
+version counts nothing.
+
 Numerical contract (that of ``pecos_tpu/xmc/inference.py:_intersect_scores``):
 the matched-value sum is exact (CSR ids are unique per row, so each weight slot
 matches at most one query nonzero); only the order of the final P-sum (and of
@@ -29,7 +36,7 @@ version.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,7 +46,8 @@ from . import _build
 # (N, K, P, Qn) compare block is ~2.7e9 elements at the predict path's shape
 _REF_QUERY_CHUNK = 64
 
-# the kernel's launch geometry (csrc/intersect.cu: kThreads)
+# the kernel's launch geometry (csrc/intersect.cu: kThreads; a test holds
+# this and _CANDS equal to the kernel's constants)
 _THREADS = 256
 # query nonzeros hashed into shared memory at a time, into a table of 8x as
 # many slots (a load of 1/8 keeps most probes to one read), 8 bytes a slot:
@@ -52,6 +60,32 @@ _MAX_PER_BLOCK = 512
 # blocks a launch aims for before it spreads one query's candidates thinner:
 # one wave of 8 blocks on each of an H100's 132 SMs
 _TARGET_BLOCKS = 8 * 132
+# waves a launch of queries longer than one chunk spreads over, at _CANDS
+# candidates a group or more (csrc/intersect.cu: kCands, the candidates a
+# group loads before probing).  A block's time follows the chunks of its
+# query that hold a nonzero (1 to 8 passes over its rows at Qn 4,096), so
+# one wave ends on the blocks of the longest queries;
+# four waves of smaller blocks even them out (wiki500k-batch's label level,
+# N 1,024, K 620: 2.09 ms at one wave, 1.50 ms at four, on an H100 at 700 W)
+_LONG_QUERY_WAVES = 4
+_CANDS = 2
+
+
+class _PassCount:
+    """K1's passes on one card: ``card``, the int64 its launches add their
+    passes past each block's first to (``taken``: its reading at the last
+    take_pass_counts), and, since that take, the blocks' first passes and the
+    chunks they had, counted on the host."""
+
+    __slots__ = ("card", "taken", "first", "chunks")
+
+    def __init__(self, device: torch.device):
+        self.card = torch.zeros(1, dtype=torch.int64, device=device)
+        self.taken = self.first = self.chunks = 0
+
+
+# per CUDA device, made at its first launch
+_PASSES: Dict[torch.device, _PassCount] = {}
 
 
 def split_packed(w_packed: torch.Tensor):
@@ -102,7 +136,7 @@ class LaunchPlan(NamedTuple):
 
     slots: int  # hash table slots, a power of two >= 8 x chunk
     chunk: int  # query nonzeros staged per table
-    chunks: int  # tables built per block: ceil(Qn / chunk)
+    chunks: int  # tables built, and passes over the rows at most, per block: ceil(Qn / chunk)
     lanes: int  # lanes per candidate row, a power of two <= 32
     per_block: int  # candidates a block
     blocks_per_row: int  # blocks of one query
@@ -119,13 +153,18 @@ def _launch_plan(N: int, K: int, P: int, Qn: int) -> LaunchPlan:
     are split over as many blocks as bring the launch near _TARGET_BLOCKS,
     never fewer than one candidate a group and never more than
     _MAX_PER_BLOCK a block, so a single query still covers K / (threads /
-    lanes) blocks."""
+    lanes) blocks.  Queries of more than one chunk are split further, over
+    up to _LONG_QUERY_WAVES times as many blocks but no fewer than _CANDS
+    candidates a group: their blocks make 1 to ``chunks`` passes."""
     chunk = max(1, min(Qn, _MAX_CHUNK))
     chunks = max(1, -(-Qn // chunk))
     slots = max(_MIN_SLOTS, 1 << math.ceil(math.log2(_SLOTS_PER_ENTRY * chunk)))
     lanes = min(32, 1 << math.ceil(math.log2(max(1, -(-P // 2)))))
     groups = _THREADS // lanes
     blocks_per_row = min(-(-K // groups), max(-(-_TARGET_BLOCKS // max(N, 1)), -(-K // _MAX_PER_BLOCK)))
+    if chunks > 1:
+        spread = min(-(-K // (_CANDS * groups)), -(-_LONG_QUERY_WAVES * _TARGET_BLOCKS // max(N, 1)))
+        blocks_per_row = max(blocks_per_row, spread)
     blocks_per_row = max(1, blocks_per_row)
     per_block = max(1, -(-K // blocks_per_row))
     blocks_per_row = max(1, -(-K // per_block))
@@ -185,11 +224,14 @@ def _launch(qids, qvals, table, rows, K, bias_id, bias_val) -> torch.Tensor:
     R, P = table.shape[0], table.shape[1] // 2
     plan = _launch_plan(N, K, P, Qn)
     out = torch.empty((N, K), dtype=torch.float32, device=qids.device)
+    passes = _PASSES.get(qids.device)
+    if passes is None:
+        passes = _PASSES[qids.device] = _PassCount(qids.device)
     with torch.cuda.device(qids.device):
         stream = torch.cuda.current_stream(qids.device).cuda_stream
         err = lib.pecos_intersect_scores(
             qids.data_ptr(), qvals.data_ptr(), table.data_ptr(), R,
-            None if rows is None else rows.data_ptr(), out.data_ptr(),
+            None if rows is None else rows.data_ptr(), out.data_ptr(), passes.card.data_ptr(),
             K, P, Qn, plan.chunk, plan.slots.bit_length() - 1, plan.lanes, plan.per_block,
             plan.blocks_per_row, plan.grid, plan.shared_bytes,
             int(bias_id is not None), int(bias_id) if bias_id is not None else 0, float(bias_val), stream,
@@ -198,7 +240,31 @@ def _launch(qids, qvals, table, rows, K, bias_id, bias_val) -> torch.Tensor:
         msg = lib.pecos_cuda_error_string(err).decode()
         raise RuntimeError(f"intersect_scores kernel launch failed: {msg} (cudaError {err})")
     intersect_scores.launches += 1
+    passes.first += plan.grid
+    passes.chunks += plan.grid * plan.chunks
     return out
+
+
+def take_pass_counts(device) -> Optional[Tuple[int, int]]:
+    """(query chunks whose candidate rows K1 read, query chunks it had),
+    summed over the blocks of its launches on ``device`` since the last take,
+    which this one zeroes; None where no launch has run there (the plain
+    version counts nothing).  The card's count is copied to the host, which
+    waits for the card: call it where the card has been waited for already.
+    It is zeroed on the host (the reading is kept and subtracted next time),
+    so a take adds no launch.  Every launch on the device counts, whoever
+    made it: launches between two predicts (a RealtimeSession's, an HNSW
+    search's, training's) count toward the next predict's reading."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    passes = _PASSES.get(device)
+    if passes is None:
+        return None
+    now = int(passes.card.item())
+    taken = passes.first + now - passes.taken, passes.chunks
+    passes.taken, passes.first, passes.chunks = now, 0, 0
+    return taken
 
 
 def _require_cpu_or_cuda(qids):

@@ -37,7 +37,7 @@ import numpy as np
 import scipy.sparse as smat
 import torch
 
-from pecos_tpu_torch.ops.intersect import intersect_scores_rows, split_packed
+from pecos_tpu_torch.ops.intersect import intersect_scores_rows, split_packed, take_pass_counts
 from pecos_tpu_torch.utils import smat_util
 from pecos_tpu_torch.utils.cluster_util import padded_children
 from pecos_tpu_torch.utils.profile_util import count, span
@@ -738,7 +738,10 @@ class CompiledHierModel:
         and for sparse batches ``pecos.pad.device`` (batches padded on the
         device), ``pecos.upload_bytes`` (query bytes copied to the device),
         ``pecos.query_nnz`` (real nonzeros) and ``pecos.query_slots`` (slots
-        of the padded block the walk reads).
+        of the padded block the walk reads); on a card, after the fetch,
+        ``pecos.k1.passes`` and ``pecos.k1.chunks`` (``take_pass_counts``:
+        the query chunks whose rows K1's blocks read, of the chunks they had,
+        since the last take).
         """
         with span("pecos.predict"):
             check_wire_value_dtype(wire_value_dtype)
@@ -796,7 +799,13 @@ class CompiledHierModel:
                         labels, scores = chain_predict(xb, self.layers, beam_size, only_topk, pp_names)
                     pending.append((labels[: N - s], scores[: N - s]))
             with span("pecos.fetch"):
-                return _fetch_topk(pending, only_topk, self.nr_labels)
+                out = _fetch_topk(pending, only_topk, self.nr_labels)
+            # the fetch has waited for the card, so K1's pass count is final
+            passes = take_pass_counts(self.device)
+            if passes is not None:
+                count("pecos.k1.passes", passes[0])
+                count("pecos.k1.chunks", passes[1])
+            return out
 
     def realtime_session(self, **kwargs) -> "RealtimeSession":
         """Open a persistent low-latency predict session (see RealtimeSession)."""

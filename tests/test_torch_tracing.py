@@ -338,3 +338,69 @@ def test_device_span_records_nothing_off_the_card():
         pass
     profile_util.settle()
     assert profile_util.snapshot() == {"spans": {}, "counters": {}}
+
+
+# ---- K1's pass pair: moved into pecos.k1.passes / .chunks after the fetch ----
+
+
+def test_predict_moves_k1_pass_counts_after_the_fetch(model, X, monkeypatch):
+    """Where K1's launches left a pass pair (on a card), each call moves what
+    it holds into ``pecos.k1.passes`` and ``pecos.k1.chunks`` once, after its
+    fetch; the benchmark's ``k1_pass_share.batch`` reads their share."""
+    from pecos_tpu_torch.xmc import inference
+    from portbench import harness
+
+    order, fetch = [], inference._fetch_topk
+    monkeypatch.setattr(inference, "_fetch_topk", lambda *a: order.append("fetch") or fetch(*a))
+
+    def take(device):
+        order.append("take")
+        assert device == model.device
+        return (3, 16)
+
+    monkeypatch.setattr(inference, "take_pass_counts", take)
+    model.predict(X, batch_size=64)
+    model.predict(X[:50], batch_size=64)
+    assert order == ["fetch", "take"] * 2
+    counters = profile_util.snapshot()["counters"]
+    assert (counters["pecos.k1.passes"], counters["pecos.k1.chunks"]) == (6, 32)
+    assert harness.metric_reader("k1_pass_share.batch")({}) == pytest.approx(100.0 * 6 / 32)
+
+
+def test_predict_on_the_cpu_counts_no_k1_passes(model, X):
+    """The plain K1 counts nothing, so a CPU predict adds no pass counters and
+    the share reads None, as on a program without them."""
+    from portbench import harness
+
+    model.predict(X, batch_size=64)
+    assert not any(k.startswith("pecos.k1.") for k in profile_util.snapshot()["counters"])
+    assert harness.metric_reader("k1_pass_share.batch")({}) is None
+
+
+@pytest.mark.parametrize(
+    "counters, share",
+    [
+        ({}, None),
+        ({"pecos.k1.passes": 5}, None),
+        ({"pecos.k1.passes": 0, "pecos.k1.chunks": 0}, None),
+        ({"pecos.k1.passes": 1308, "pecos.k1.chunks": 8000}, 16.35),
+        ({"pecos.k1.passes": 8, "pecos.k1.chunks": 8}, 100.0),
+    ],
+)
+def test_k1_pass_share_reader(counters, share):
+    """100 x passes / chunks from the registry, None where either counter is
+    missing or no chunk was counted."""
+    from portbench import harness
+
+    for name, n in counters.items():
+        profile_util.count(name, n)
+    got = harness.metric_reader("k1_pass_share.batch")({})
+    assert got == (None if share is None else pytest.approx(share))
+
+
+def test_k1_pass_share_reads_none_without_a_registry(monkeypatch):
+    """A program whose profile_util has no registry (before it had one)."""
+    from portbench import harness
+
+    monkeypatch.delattr(profile_util, "snapshot")
+    assert harness.metric_reader("k1_pass_share.batch")({}) is None
