@@ -52,7 +52,8 @@ non-zero:
 9. compiled — save_compiled_layers of the phase-5 model to a temporary
              directory; load_compiled_layers eager (labels of 1,024 queries
              equal phase 5's) and lazy with every layer streamed (agreement
-             with eager; peak memory below the resident layers' bytes).
+             with eager; peak memory below the same lazy predict's with
+             every layer resident).
 10. train  — (a) the Newton-CG solvers on the card against the port on the
              CPU (solve_block_coded, solve_cluster_bucket, solve_sparse_rows
              in both layouts) and host syncs per solve, and F8: the chunked
@@ -246,21 +247,24 @@ K1_OPTION_SHAPES = [
     ("hnsw prune select", 21845, 64, ANN_SPARSE_P, ANN_SPARSE_P, "select", "hnsw", False, 100_000),
 ]
 # wiki500k-batch's K1 levels above one chunk, as K1_ROW_CASES: the label
-# level and level 3 (level 2 is level 3's shape over 512 rows)
+# level (labels dealt to leaf clusters by a permutation, so a query's
+# candidates are scattered rows) and level 3 (level 2 is level 3's shape
+# over 512 rows)
 K1_WIKI_SHAPES = [
-    ("wiki500k-batch label level", 1024, 620, 512, 4096, "parents", "lognormal", True, 8192 * 62),
-    ("wiki500k-batch level 3", 1024, 160, 512, 4096, "parents", "lognormal", True, 512 * NR_SPLITS),
+    ("wiki500k-batch label level by label rows", 1024, 620, 512, 4096, "perm", "lognormal", True, 501_070),
+    ("wiki500k-batch level 3 by parent rows", 1024, 160, 512, 4096, "parents", "lognormal", True, 512 * NR_SPLITS),
 ]
 # K1 by row id: (name, N, K, P, Qn, layout, pad, bias, table rows), as the
 # callers pass rows, then a query above one table's capacity (512), an odd P
-# and duplicate query ids, then wiki500k-batch's label level (8,192 parents
-# of 62 children, rows of 511 features and the bias) and its level 3 (512
-# parents of 16), its queries padded to 4,096 past lognormal lengths.
-# layout "parents": the rows of BEAM parents' K / BEAM children each in a
-# parent_packed table, some -1; "perm":
-# a random permutation of the table's rows; "select": the lazy selection's
-# index into the HNSW corpus's rows, -1 past each row's count; "dups":
-# random rows
+# and duplicate query ids, then wiki500k-batch's label level (501,070
+# labels, rows of 511 features and the bias) and its level 3 (512 parents
+# of 16), its queries padded to 4,096 past lognormal lengths.
+# layout "parents": BEAM runs of K / BEAM consecutive rows, the children of
+# BEAM random parents where labels are numbered by parent (phase 5's tree,
+# wiki500k-batch's levels above the labels), some -1 and 5% of the rows
+# zero; "perm": a random permutation of the table's rows; "select": the
+# lazy selection's index into the HNSW corpus's rows, -1 past each row's
+# count; "dups": random rows
 K1_ROW_CASES = [
     ("predict by parent rows", 1024, 160, 64, 256, "parents", False, True, 4096 * NR_SPLITS),
     ("batch-1 by parent rows", 1, 160, 64, 256, "parents", False, True, 4096 * NR_SPLITS),
@@ -270,10 +274,10 @@ K1_ROW_CASES = [
     ("above one table", 8, 37, 64, 5000, "perm", True, True, 8 * 37),
     ("odd P", 5, 7, 13, 600, "perm", True, True, 5 * 7),
     ("duplicate query ids", 64, 160, 64, 256, "dups", False, True, 20_000),
-    *[(f"{name} by parent rows", *shape) for name, *shape in K1_WIKI_SHAPES],
+    *K1_WIKI_SHAPES,
 ]
 # the timed shapes: (name, N, K, P, Qn, layout, pad, bias, table rows): the
-# last plabel layer's parent_packed (32,768 parents x 16 children), and the
+# last plabel layer's packed rows (32,768 parents x 16 children), and the
 # sparse HNSW corpus's 100,000 packed rows, by phase 11's and phase 15's callers
 K1_TIMED = [
     ("predict", 1024, 160, 64, 256, "parents", False, True, (L // NR_SPLITS) * NR_SPLITS),
@@ -494,7 +498,7 @@ def make_rows_case(device, N, K, P, Qn, layout, pad, bias, R, seed):
         tail = torch.randint(0, P // 2 + 1, (R, 1), generator=gen, device=device)
         empty = torch.arange(P, device=device)[None, :] >= P - tail
         ids[empty], vals[empty] = SPARSE_PAD_ID if pad == "hnsw" else 0, 0.0
-    if layout == "parents":  # missing children: zero rows of parent_packed
+    if layout == "parents":  # labels with no weights: zero rows
         gone = torch.rand((R,), generator=gen, device=device) < 0.05
         ids[gone], vals[gone] = 0, 0.0
     table = torch.cat([ids, vals.view(torch.int32)], dim=1)
@@ -801,7 +805,7 @@ def run_compiled(compiled, X, P5, n_plabel, smi, kw, device):
     import torch
 
     from pecos_tpu_torch.ops.intersect import intersect_scores
-    from pecos_tpu_torch.xmc.inference import build_parent_packed, load_compiled_layers, save_compiled_layers
+    from pecos_tpu_torch.xmc.inference import load_compiled_layers, save_compiled_layers
 
     Xq = X[:N_COMPILED]
     want_labels, want_scores = ranked(P5[:N_COMPILED], TOPK)
@@ -825,12 +829,6 @@ def run_compiled(compiled, X, P5, n_plabel, smi, kw, device):
             raise RuntimeError(f"compiled eager: {int((e_labels != want_labels).sum())} labels differ from phase 5")
         del eager, P_eager
         gc.collect()
-        with np.load(os.path.join(folder, f"layer_{compiled.depth - 1}.npz")) as z:
-            packed, children = z["packed"], z["children"]
-        t0 = time.perf_counter()
-        build_parent_packed(packed, children)
-        pp_s = time.perf_counter() - t0
-        del packed, children
         t0 = time.perf_counter()
         lazy = load_compiled_layers(folder, lazy=True, resident_budget_bytes=0, device=device)
         lazy_load_s = time.perf_counter() - t0
@@ -843,15 +841,25 @@ def run_compiled(compiled, X, P5, n_plabel, smi, kw, device):
         lazy_s = time.perf_counter() - t0
         lazy_launches = intersect_scores.launches
         lazy_peak = torch.cuda.max_memory_allocated() - base
+        del lazy
+        gc.collect()
+        # the same lazy predict with every layer resident: the same code and
+        # intermediates, every layer held at once
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        load_compiled_layers(folder, lazy=True, resident_budget_bytes=file_bytes, device=device).predict(Xq, **kw)
+        resident_peak = torch.cuda.max_memory_allocated() - base
     check_agreement(*ranked(P_lazy, TOPK), e_labels, e_scores, f"compiled lazy: label agreement with eager on {N_COMPILED} queries")
     x_bytes = N_COMPILED * (D + 1) * 4
     print(f"compiled [{smi}]: save {save_s!r} s ({file_bytes} bytes on disk), eager load {load_s!r} s, "
-          f"lazy open {lazy_load_s!r} s, parent_packed rebuild of the last layer {pp_s!r} s (host)")
+          f"lazy open {lazy_load_s!r} s")
     print(f"compiled [{smi}]: lazy predict of {N_COMPILED} queries {lazy_s!r} s, every layer streamed; peak device "
-          f"memory above the start {lazy_peak} bytes = query block {x_bytes} + {lazy_peak - x_bytes} "
-          f"(resident layers of the eager model: {layer_bytes} bytes); K1 launches eager {eager_launches}, lazy {lazy_launches}")
-    if lazy_peak - x_bytes >= layer_bytes:
-        raise RuntimeError(f"compiled lazy: peak minus the query block {lazy_peak - x_bytes} >= resident layers {layer_bytes}")
+          f"memory above the start {lazy_peak} bytes = query block {x_bytes} + {lazy_peak - x_bytes}, with every layer "
+          f"resident {resident_peak} bytes (the eager model's layers: {layer_bytes} bytes); K1 launches eager "
+          f"{eager_launches}, lazy {lazy_launches}")
+    if lazy_peak >= resident_peak:
+        raise RuntimeError(f"compiled lazy: streamed peak {lazy_peak} >= the peak with every layer resident {resident_peak}")
     return eager_launches, lazy_launches
 
 
@@ -1395,7 +1403,7 @@ def run_sharded_predict(xlm, X, P5, n_plabel, smi, kw):
     check_agreement(labels, scores, want_labels, want_scores, f"sharded predict [{smi}]: (row, rank) labels equal to phase 5's")
     same = labels == want_labels
     rel = float((np.abs(scores[same] - want_scores[same]) / np.maximum(np.abs(want_scores[same]), 1e-30)).max())
-    shard_bytes = [sum(l.nbytes for l in layers) for layers in mesh_layers(compiled, mesh, "parents")[0]]
+    shard_bytes = [sum(l.nbytes for l in layers) for layers in mesh_layers(compiled, mesh, "labels")[0]]
     best = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1596,15 +1604,15 @@ def check_scores(got, want, what):
 
 def check_k1_text2text(members, host_members, X, n=T2T_K1_QUERIES, what="text2text"):
     """K1 at phase 13b's shapes: the first ``n`` rows of ``X`` scored at every
-    plabel level of each member by the path's call
-    (``inference.score_candidates_sparse_parents`` on the member's padded
-    ``parent_packed`` table), over the beam parents the plain predict chose
-    for them, against the sparse product X @ W at the candidate columns in
-    float64 (0 where a parent has no such child); ``host_members`` hold the
-    same weights as host matrices.  Tolerance as check_k1's.  Returns the max
+    plabel level of each member by the path's call (K1 by candidate id on
+    the layer's ``packed`` rows), over the children of the beam parents the
+    plain predict chose for them, against the sparse product X @ W at the
+    candidate columns in float64 (0 where a parent has no such child);
+    ``host_members`` hold the same weights as host matrices.  Tolerance as check_k1's.  Returns the max
     abs error."""
     import torch
 
+    from pecos_tpu_torch.ops.intersect import intersect_scores_rows
     from pecos_tpu_torch.utils.cluster_util import padded_children
     from pecos_tpu_torch.xmc import inference
 
@@ -1623,17 +1631,17 @@ def check_k1_text2text(members, host_members, X, n=T2T_K1_QUERIES, what="text2te
             if layer.kind != "plabel":
                 continue
             parents = np.clip(beams[d], 0, None).astype(np.int64)  # as expand_beam clamps them
-            got = inference.score_candidates_sparse_parents(
-                q, v, layer, torch.from_numpy(parents).to(dev), D if bias > 0 else None, bias
-            ).cpu().numpy()
             cand = padded_children(m.C)[0][parents].reshape(n, -1).astype(np.int64)
+            got = intersect_scores_rows(
+                q, v, layer.packed, torch.from_numpy(cand).to(dev), D if bias > 0 else None, bias
+            ).cpu().numpy()
             cols, W = np.clip(cand, 0, None), m.W.tocsc().astype(np.float64)
             want = np.where(cand >= 0, np.take_along_axis((Xb @ W).toarray(), cols, axis=1), 0.0)
             scale = float(np.take_along_axis((abs(Xb) @ abs(W)).toarray(), cols, axis=1).max())
             err = np.abs(got - want)
             bad = int((err > 1e-5 * np.abs(want) + 1e-6 * scale).sum())
-            print(f"K1 {what} member {i} level {d}: N={n} K={cand.shape[1]} table {tuple(layer.parent_packed.shape)} "
-                  f"({layer.parent_packed.numel()} int32), Qn={q.shape[1]}: max_abs_err={float(err.max())!r} "
+            print(f"K1 {what} member {i} level {d}: N={n} K={cand.shape[1]} table {tuple(layer.packed.shape)} "
+                  f"({layer.packed.numel()} int32), Qn={q.shape[1]}: max_abs_err={float(err.max())!r} "
                   f"scale={scale!r} bad={bad}")
             if bad or not np.isfinite(got).all():
                 raise RuntimeError(f"K1 {what} member {i} level {d}: {bad} scores outside tolerance")
@@ -1763,10 +1771,10 @@ def run_text2text(device, smi, corpus):
         cpu_s = time.perf_counter() - t0
         c_labels, _ = ranked(P_cpu, T2T_TOPK)
         agree = float((c_labels == labels).mean())
-        pads = [[tuple(l.parent_packed.shape) for l in m.model._get_compiled().layers if l.kind == "plabel"] for m in members]
+        pads = [[tuple(l.packed.shape) for l in m.model._get_compiled().layers if l.kind == "plabel"] for m in members]
         print(f"text2text CPU: loaded with device='cpu', {len(texts)} texts by the plain sparse-product predict in "
-              f"{cpu_s!r} s: (row, rank) items equal to the card's {agree!r}; the card's padded plabel tables "
-              f"(parents, children, 2P) {pads}")
+              f"{cpu_s!r} s: (row, rank) items equal to the card's {agree!r}; the card's plabel tables "
+              f"(labels, 2P) {pads}")
         if agree < T2T_MIN_CPU_AGREE:
             raise RuntimeError(f"text2text CPU: agreement {agree!r} < {T2T_MIN_CPU_AGREE}")
         # the scores, not only the ranking: each member's on the card against
@@ -2241,11 +2249,11 @@ def run_xtransformer(device, smi, data, tmp):
 
 def time_k1_path(device, xlm, host, X, name, smi, iters=10):
     """K1 by row id at the last plabel level of ``xlm`` on the queries X
-    (one predict batch) over the beam parents the plain predict chooses:
-    the kernel at X's rows, and the kernel, the composite and the plain
-    version side by side at a common N, the most rows whose plain compare
-    block (N x K x P x its 64-query-id chunk) stays below 2**31 elements;
-    medians as time_k1's, with the bound at X's rows."""
+    (one predict batch) over the children of the beam parents the plain
+    predict chooses: the kernel at X's rows, and the kernel, the composite
+    and the plain version side by side at a common N, the most rows whose
+    plain compare block (N x K x P x its 64-query-id chunk) stays below
+    2**31 elements; medians as time_k1's, with the bound at X's rows."""
     import torch
 
     from pecos_tpu_torch.ops.intersect import intersect_scores_rows, intersect_scores_rows_reference
@@ -2259,9 +2267,8 @@ def time_k1_path(device, xlm, host, X, name, smi, iters=10):
     plain_xlinear_predict(host, A, T2T_BEAM, T2T_TOPK, beams=beams)
     parents = torch.from_numpy(np.clip(beams[d], 0, None).astype(np.int64)).to(compiled.device)
     q, v = (torch.from_numpy(a).to(compiled.device) for a in inference.prepare_queries_padded(A))
-    maxc = layer.parent_packed.shape[1]
-    table = layer.parent_packed.view(-1, layer.parent_packed.shape[2])
-    rows = (parents[:, :, None] * maxc + torch.arange(maxc, device=parents.device)).reshape(parents.shape[0], -1)
+    table = layer.packed
+    rows = layer.children[parents].reshape(parents.shape[0], -1)
     bias = (compiled.nr_features, compiled.bias) if compiled.bias > 0 else ()
     N, K = rows.shape
     P = table.shape[1] // 2

@@ -73,16 +73,16 @@ def dryrun(mesh: Mesh) -> dict:
         raise RuntimeError("sparse label-sharded predict != single-device predict")
 
     bottom = mesh_layers(compiled, mesh, "labels")[0][0][-1].W
-    parents = mesh_layers(sparse, mesh, "parents")[0][0][-1].parent_packed
+    packed = mesh_layers(sparse, mesh, "labels")[0][0][-1].packed
     out = {
         "mesh": dict(mesh.shape), "W": tuple(W.shape), "pred": tuple(labels.shape),
         "bottom_W": (tuple(compiled.layers[-1].W.shape), tuple(bottom.shape)),
-        "parent_packed": (tuple(sparse.layers[-1].parent_packed.shape), tuple(parents.shape)),
+        "packed": (tuple(sparse.layers[-1].packed.shape), tuple(packed.shape)),
     }
     print(
         f"dryrun {dict(mesh.shape)} on {sorted({str(d) for r in mesh.devices for d in r})}: W {out['W']}, pred {out['pred']}; "
         f"lp-sharded bottom layer W {out['bottom_W'][0]} -> {out['bottom_W'][1]} a device; sparse engine "
-        f"parent_packed {out['parent_packed'][0]} -> {out['parent_packed'][1]} a device; OK"
+        f"packed {out['packed'][0]} -> {out['packed'][1]} a device; OK"
     )
     return out
 

@@ -43,12 +43,12 @@ from pecos_tpu_torch.xmc.inference import (
     _fetch_topk,
     _pp_names,
     _upload,
-    build_parent_packed,
     chain_predict,
     expand_beam,
     pad_query_rows,
     prepare_queries,
     prepare_queries_padded,
+    query_cap,
     root_beam,
     score_candidates,
     score_candidates_dense_sparse,
@@ -107,9 +107,9 @@ def cuda_devices(n: int) -> List[torch.device]:
 
 def _pad_layer_labels(layer: DeviceLayer, lp: int) -> DeviceLayer:
     """The layer's label dimension padded to a multiple of lp: W's columns
-    (dense) or the packed rows (plabel, without parent_packed), so each lp
-    shard owns a contiguous label block.  The children table is untouched: it
-    names real labels only, so a padded label is never a candidate."""
+    (dense) or the packed rows (plabel), so each lp shard owns a contiguous
+    label block.  The children table is untouched: it names real labels only,
+    so a padded label is never a candidate."""
     pad = -layer.nr_labels % lp
     if layer.kind == "dense":
         return DeviceLayer("dense", layer.nr_labels, layer.children, W=F.pad(layer.W, (0, pad)) if pad else layer.W)
@@ -117,40 +117,20 @@ def _pad_layer_labels(layer: DeviceLayer, lp: int) -> DeviceLayer:
     return DeviceLayer("plabel", layer.nr_labels, layer.children, packed=packed)
 
 
-def _pad_layer_parents(layer: DeviceLayer, lp: int) -> DeviceLayer:
-    """A plabel layer's parent_packed table (built from packed and children
-    when the layer has none) padded to a multiple of lp parents.  Sharding by
-    parent gives each lp shard every child of its parents, so K1 scores a beam
-    parent's children from one run of rows on one device.  Padded parents are
-    never in a beam."""
-    pp = layer.parent_packed
-    if pp is None:
-        host = build_parent_packed(layer.packed.cpu().numpy(), layer.children.cpu().numpy())
-        pp = torch.from_numpy(host).to(layer.device)
-    pad = -pp.shape[0] % lp
-    if pad:
-        pp = F.pad(pp, (0, 0, 0, 0, 0, pad))
-    return DeviceLayer("plabel", layer.nr_labels, layer.children, parent_packed=pp)
-
-
 def _block(layer: DeviceLayer, j: int, lp: int) -> DeviceLayer:
-    """Shard j of lp of a padded layer: a block of W's columns, of packed
-    rows or of parent_packed parents (a view), with the whole children table."""
+    """Shard j of lp of a padded layer: a block of W's columns or of packed
+    rows (a view), with the whole children table."""
     if layer.W is not None:
         b = layer.W.shape[1] // lp
         return DeviceLayer("dense", b, layer.children, W=layer.W[:, j * b : (j + 1) * b])
-    if layer.packed is not None:
-        b = layer.packed.shape[0] // lp
-        return DeviceLayer("plabel", b, layer.children, packed=layer.packed[j * b : (j + 1) * b])
-    b = layer.parent_packed.shape[0] // lp
-    return DeviceLayer("plabel", layer.nr_labels, layer.children, parent_packed=layer.parent_packed[j * b : (j + 1) * b])
+    b = layer.packed.shape[0] // lp
+    return DeviceLayer("plabel", b, layer.children, packed=layer.packed[j * b : (j + 1) * b])
 
 
 def mesh_layers(compiled, mesh: Mesh, engine: str) -> List[List[List[DeviceLayer]]]:
     """``compiled``'s layers laid out for ``engine`` on the mesh, as
     ``[dp row][lp column][layer]`` on ``mesh.devices[row][column]``:
-    ``"labels"`` pads and splits label blocks (the dense engine),
-    ``"parents"`` splits plabel layers by parent block (the sparse engine),
+    ``"labels"`` pads and splits label blocks (both label-sharded engines),
     ``"replicated"`` copies whole layers.  Built once per (mesh devices,
     engine) and kept on the model (``compiled.mesh_layers``); each lp block is
     moved to a device once, however many rows share that device, and a block
@@ -161,11 +141,7 @@ def mesh_layers(compiled, mesh: Mesh, engine: str) -> List[List[List[DeviceLayer
         if engine == "replicated":
             blocks = [compiled.layers] * lp
         else:
-            pad = {
-                "labels": lambda l: _pad_layer_labels(l, lp),
-                "parents": lambda l: _pad_layer_labels(l, lp) if l.kind == "dense" else _pad_layer_parents(l, lp),
-            }[engine]
-            padded = [pad(l) for l in compiled.layers]
+            padded = [_pad_layer_labels(l, lp) for l in compiled.layers]
             blocks = [[_block(l, j, lp) for l in padded] for j in range(lp)]
         moved = {}
         for row in mesh.devices:
@@ -197,23 +173,27 @@ def _check_rows(N: int, dp: int) -> int:
     return N // dp
 
 
-def _beam_on_mesh(mesh: Mesh, compiled, engine: str, n_rows: int, upload, score, beam_size: int, only_topk: int, pp_names):
+def _beam_on_mesh(mesh: Mesh, compiled, n_rows: int, upload, score, beam_size: int, only_topk: int, pp_names):
     """The label-sharded beam search of both engines over ``n_rows`` queries.
     Per dp row, ``upload(rows, dev)`` puts that row's queries on each of its
-    devices once; per level, ``score(queries, layer, j, cand, parents, dev)``
-    gives lp shard j's (scores, owned) for the expanded candidates, which are
-    gathered over lp before the row's top-k.  Returns (labels, values) on the
-    mesh's first device."""
+    devices once; per level, ``score(queries, block, own, local)`` gives lp
+    shard j's scores of the expanded candidates from its label block
+    (``own``, ``local``: ``_own``'s), which are gathered over lp before the
+    row's top-k.  Returns (labels, values) on the mesh's first device."""
     n = _check_rows(n_rows, mesh.shape["dp"])
-    grid = mesh_layers(compiled, mesh, engine)
+    grid = mesh_layers(compiled, mesh, "labels")
     out = []
     for i, row in enumerate(mesh.devices):
         home, shards = row[0], grid[i]
         queries = {dev: upload(slice(i * n, (i + 1) * n), dev) for dev in set(row)}
         parents, pvals = root_beam(compiled.layers[0].children.shape[0], n, pp_names[0], home)
         for d in range(compiled.depth):
-            _, cand, valid = expand_beam(shards[0][d].children, parents)
-            raws, owns = zip(*(score(queries[dev], shards[j][d], j, cand, parents, dev) for j, dev in enumerate(row)))
+            cand, valid = expand_beam(shards[0][d].children, parents)
+            raws, owns = [], []
+            for j, dev in enumerate(row):
+                own, lc = _own(cand.to(dev), j, shards[j][d].nr_labels)
+                raws.append(score(queries[dev], shards[j][d], own, lc))
+                owns.append(own)
             k = only_topk if d == compiled.depth - 1 else beam_size
             parents, pvals = select_beam(
                 _gather_lp(raws, owns, home), cand, valid, pvals, k, PostProcessor.get(pp_names[d]), no_prev=(d == 0)
@@ -227,34 +207,24 @@ def _sparse_chain(mesh: Mesh, compiled, ids: np.ndarray, vals: np.ndarray, beam_
     (labels, values) on the mesh's first device."""
     bias_id = compiled.nr_features if compiled.bias > 0 else None
 
-    def score(q, local, j, cand, parents, dev):
+    def score(q, local, own, lc):
         qids, qvals = q
         if local.kind == "dense":
-            own, lc = _own(cand.to(dev), j, local.nr_labels)
-            return score_candidates_dense_sparse(qids, qvals, local, lc, bias_id, compiled.bias), own
-        # a beam parent this shard does not own reads row -1: K1 reads
-        # nothing for it and scores 0, and it is masked by the owned mask
-        Pb, maxc, twoP = local.parent_packed.shape
-        own_p, lpar = _own(parents.to(dev), j, Pb)
-        rows = torch.add(torch.arange(maxc, device=dev), lpar[:, :, None], alpha=maxc)
-        rows = torch.where(own_p[:, :, None], rows, -1).reshape(rows.shape[0], -1)
-        raw = intersect_scores_rows(qids, qvals, local.parent_packed.view(-1, twoP), rows, bias_id, compiled.bias)
-        return raw, own_p.repeat_interleave(maxc, dim=1)
+            return score_candidates_dense_sparse(qids, qvals, local, lc, bias_id, compiled.bias)
+        # a candidate this shard does not own (a -1 pad never is) reads row
+        # -1: K1 reads nothing for it and scores 0, and _gather_lp masks it
+        return intersect_scores_rows(qids, qvals, local.packed, torch.where(own, lc, -1), bias_id, compiled.bias)
 
     upload = lambda rows, dev: (_upload(ids[rows], dev), _upload(vals[rows], dev))
-    return _beam_on_mesh(mesh, compiled, "parents", ids.shape[0], upload, score, beam_size, only_topk, pp_names)
+    return _beam_on_mesh(mesh, compiled, ids.shape[0], upload, score, beam_size, only_topk, pp_names)
 
 
 def _dense_chain(mesh: Mesh, compiled, Xd: np.ndarray, beam_size: int, only_topk: int, pp_names):
     """The dense label-sharded beam search over dense (N, D+1) queries;
     returns (labels, values) on the mesh's first device."""
-
-    def score(q, local, j, cand, parents, dev):
-        own, lc = _own(cand.to(dev), j, local.nr_labels)
-        return score_candidates(q, local, lc), own
-
     upload = lambda rows, dev: _upload(np.ascontiguousarray(Xd[rows]), dev)
-    return _beam_on_mesh(mesh, compiled, "labels", Xd.shape[0], upload, score, beam_size, only_topk, pp_names)
+    score = lambda X, local, own, lc: score_candidates(X, local, lc)
+    return _beam_on_mesh(mesh, compiled, Xd.shape[0], upload, score, beam_size, only_topk, pp_names)
 
 
 def _concat(mesh: Mesh, parts) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -294,11 +264,11 @@ def shard_chain_predict_labels_sparse(
 ):
     """Label-sharded beam search on the sparse query engine, the one
     ``CompiledHierModel.predict`` runs on one device: queries travel padded
-    as (ids, values); dense layers' W is split by label columns and scored by
-    a W-row gather; plabel layers' parent_packed is split by parent block over
-    lp, and each shard scores its own beam parents' children with K1 (one
-    launch per shard and level).  N must divide by dp.  Returns (labels,
-    values) on the mesh's first device."""
+    as (ids, values); every layer is split by label block over lp (dense
+    layers' W by columns, scored by a W-row gather; plabel layers' packed
+    rows), and each shard scores the candidates in its block, plabel layers
+    with K1 by candidate id (one launch per shard and level).  N must divide
+    by dp.  Returns (labels, values) on the mesh's first device."""
     A = X.tocsr() if smat.issparse(X) else smat.csr_matrix(np.asarray(X, np.float32))
     ids, vals = prepare_queries_padded(A)
     return _sparse_chain(mesh, compiled, ids, vals, beam_size, only_topk, _pp_names(post_processor, compiled.depth))
@@ -323,8 +293,7 @@ def predict_sharded(
     pending = []
     if smat.issparse(X):
         A = X.tocsr()
-        max_nnz = int(np.diff(A.indptr).max()) if N else 1
-        cap = max(64, 1 << max(0, max_nnz - 1).bit_length())
+        cap = query_cap(A)
         for s in range(0, N, batch):
             ids, vals = prepare_queries_padded(A[s : s + batch], cap=cap)
             labels, scores = _sparse_chain(mesh, compiled, *pad_query_rows(ids, vals, up(ids.shape[0]), D), beam_size, only_topk, pp_names)

@@ -6,8 +6,7 @@ over padded children tables, run eagerly on one torch device.
 - A layer lives on the device in one of two layouts (:class:`DeviceLayer`):
   ``dense`` — W as a dense (D+1, L) matrix, for the small upper levels; or
   ``plabel`` — every label's pruned sparse weight vector padded to P slots and
-  packed as [ids | float bits], plus ``parent_packed``, the same rows grouped
-  by parent so one beam parent's children are contiguous rows.
+  packed as [ids | float bits], one row per label, read by candidate id.
 - One beam step expands the beam's parents into candidates, scores them,
   applies the post-processor's transform and combiner, masks invalid
   candidates and keeps the top k.
@@ -63,10 +62,6 @@ class DeviceLayer:
     children: torch.Tensor  # (n_parents, max_children) int64, -1 padded
     W: Optional[torch.Tensor] = None  # dense: (D+1, L) float32
     packed: Optional[torch.Tensor] = None  # plabel: (L, 2P) int32 [ids | float bits]
-    # plabel: (n_parents, max_children, 2P) int32 — each parent's children's
-    # packed rows in children-table order (zeros for -1 children), so a beam
-    # parent's candidates are max_children contiguous rows for K1 to read
-    parent_packed: Optional[torch.Tensor] = None
 
     @property
     def max_children(self) -> int:
@@ -79,24 +74,13 @@ class DeviceLayer:
     @property
     def nbytes(self) -> int:
         """Bytes of the layer's tensors on its device."""
-        tensors = (self.children, self.W, self.packed, self.parent_packed)
+        tensors = (self.children, self.W, self.packed)
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
     def to(self, device: DeviceLike) -> "DeviceLayer":
         dev = resolve_device(device)
         move = lambda t: None if t is None else t.to(dev)
-        return DeviceLayer(
-            self.kind, self.nr_labels, move(self.children), move(self.W),
-            move(self.packed), move(self.parent_packed),
-        )
-
-
-def build_parent_packed(packed: np.ndarray, children: np.ndarray) -> np.ndarray:
-    """Host-side (n_parents, maxc, 2P) layout: packed rows of each parent's
-    children, zeros where the children table is -1 padded."""
-    pp = np.asarray(packed)[np.clip(children, 0, packed.shape[0] - 1)]
-    pp[np.asarray(children) < 0] = 0
-    return pp
+        return DeviceLayer(self.kind, self.nr_labels, move(self.children), move(self.W), move(self.packed))
 
 
 def _plabel_packed(W: smat.csc_matrix) -> np.ndarray:
@@ -131,8 +115,7 @@ def build_device_layer(
         if layout == "dense":
             arrays = {"W": np.asarray(W.todense(), dtype=np.float32)}
         elif layout == "plabel":
-            packed = _plabel_packed(W)
-            arrays = {"packed": packed, "parent_packed": build_parent_packed(packed, children)}
+            arrays = {"packed": _plabel_packed(W)}
         else:
             raise ValueError(f"unknown layout {layout!r}")
         return layers_from_numpy(
@@ -142,9 +125,9 @@ def build_device_layer(
 
 def layers_from_numpy(layers: Sequence[Dict], device: DeviceLike) -> List[DeviceLayer]:
     """DeviceLayers from numpy arrays named like the DeviceLayer fields (kind,
-    nr_labels, children, W | packed [, parent_packed]); the JAX package's
-    layers, passed through ``np.asarray``, carry over as they are.  A plabel
-    layer without parent_packed scores from per-label packed rows."""
+    nr_labels, children, W | packed); the JAX package's layers, passed through
+    ``np.asarray``, carry over as they are.  Their ``parent_packed`` key, the
+    JAX package's copy of the packed rows grouped by parent, is ignored."""
     dev = resolve_device(device)
     # copies: the tensors own their memory even where the arrays are read-only views
     tensor = lambda a, dtype: torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(dev)
@@ -154,16 +137,7 @@ def layers_from_numpy(layers: Sequence[Dict], device: DeviceLike) -> List[Device
         if d["kind"] == "dense":
             out.append(DeviceLayer("dense", int(d["nr_labels"]), children, W=tensor(d["W"], np.float32)))
         elif d["kind"] == "plabel":
-            pp = d.get("parent_packed")
-            out.append(
-                DeviceLayer(
-                    "plabel",
-                    int(d["nr_labels"]),
-                    children,
-                    packed=tensor(d["packed"], np.int32),
-                    parent_packed=None if pp is None else tensor(pp, np.int32),
-                )
-            )
+            out.append(DeviceLayer("plabel", int(d["nr_labels"]), children, packed=tensor(d["packed"], np.int32)))
         else:
             raise ValueError(f"unknown layer kind {d['kind']!r}")
     return out
@@ -177,17 +151,22 @@ def prepare_queries(X, bias: float) -> np.ndarray:
     return Xd
 
 
+def query_cap(A: smat.csr_matrix) -> int:
+    """The padded width of CSR queries ``A``: the longest row's nonzeros
+    rounded up to a power of two, at least 64."""
+    max_nnz = int(np.diff(A.indptr).max()) if A.shape[0] else 1
+    return max(64, 1 << max(0, max_nnz - 1).bit_length())
+
+
 def prepare_queries_padded(X: smat.spmatrix, cap: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
     """Sparse queries as padded (ids int32, vals float32), each (N, cap).
 
-    Id D+1 with value 0 marks padding.  ``cap`` defaults to the max row nnz
-    rounded up to a power of two, at least 64.
+    Id D+1 with value 0 marks padding.  ``cap`` defaults to ``query_cap``.
     """
     A = X.tocsr()
     nnz = np.diff(A.indptr)
     if cap is None:
-        max_nnz = int(nnz.max()) if A.shape[0] else 1
-        cap = max(64, 1 << (max_nnz - 1).bit_length())
+        cap = query_cap(A)
     D = A.shape[1]
     if A.shape[0] and A.nnz == A.shape[0] * cap and int(nnz.max()) == cap:
         # every row full: the padded layout is a reshape of the CSR arrays
@@ -451,37 +430,6 @@ def score_candidates(X: torch.Tensor, layer: DeviceLayer, cand: torch.Tensor) ->
     return torch.cat(out) if out else X.new_zeros((0, K))
 
 
-def score_candidates_sparse(
-    qids: torch.Tensor,
-    qvals: torch.Tensor,
-    layer: DeviceLayer,
-    cand: torch.Tensor,  # (N, K) int64, in range
-    bias_id: Optional[int] = None,
-    bias_val: float = 0.0,
-) -> torch.Tensor:
-    """Sparse-query x sparse-weight candidate scoring (K1) from the per-label
-    packed rows, read by candidate id."""
-    return intersect_scores_rows(qids, qvals, layer.packed, cand, bias_id, bias_val)
-
-
-def score_candidates_sparse_parents(
-    qids: torch.Tensor,
-    qvals: torch.Tensor,
-    layer: DeviceLayer,
-    parents: torch.Tensor,  # (N, Bm) int64, in range
-    bias_id: Optional[int] = None,
-    bias_val: float = 0.0,
-) -> torch.Tensor:
-    """K1 from the parent-packed layout: a beam parent's children are maxc
-    contiguous rows, read by id.  Returns (N, Bm*maxc) raw scores aligned
-    with ``children[parents].reshape(N, -1)``."""
-    N = parents.shape[0]
-    maxc = layer.parent_packed.shape[1]
-    table = layer.parent_packed.view(-1, layer.parent_packed.shape[2])
-    rows = torch.add(torch.arange(maxc, device=parents.device), parents[:, :, None], alpha=maxc).reshape(N, -1)
-    return intersect_scores_rows(qids, qvals, table, rows, bias_id, bias_val)
-
-
 def beam_step(
     X: Optional[torch.Tensor],
     layer: DeviceLayer,
@@ -495,31 +443,30 @@ def beam_step(
     bias_id: Optional[int] = None,
     bias_val: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Expand parents through one layer; returns (labels (N, k), values (N, k))."""
-    safe_parents, cand, valid = expand_beam(layer.children, parents)
-    cand_safe = cand.clamp(0, layer.nr_labels - 1)
+    """Expand parents through one layer; returns (labels (N, k), values (N, k)).
+
+    A plabel layer scores sparse queries with K1 on its packed rows read by
+    candidate id; a -1 candidate (a children-table pad) reads nothing and
+    scores 0, and ``select_beam`` masks it."""
+    cand, valid = expand_beam(layer.children, parents)
     if layer.kind == "plabel" and qids is not None:
-        if layer.parent_packed is not None:
-            raw = score_candidates_sparse_parents(qids, qvals, layer, safe_parents, bias_id, bias_val)
-        else:
-            raw = score_candidates_sparse(qids, qvals, layer, cand_safe, bias_id, bias_val)
+        raw = intersect_scores_rows(qids, qvals, layer.packed, cand, bias_id, bias_val)
     elif layer.kind == "dense" and X is None:
-        raw = score_candidates_dense_sparse(qids, qvals, layer, cand_safe, bias_id, bias_val)
+        raw = score_candidates_dense_sparse(qids, qvals, layer, cand.clamp(0, layer.nr_labels - 1), bias_id, bias_val)
     else:
-        raw = score_candidates(X, layer, cand_safe)
+        raw = score_candidates(X, layer, cand.clamp(0, layer.nr_labels - 1))
     return select_beam(raw, cand, valid, pvals, k, pp, no_prev)
 
 
-def expand_beam(children: torch.Tensor, parents: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The candidates of a beam: (parents clamped into the children table,
-    candidates (N, B*maxc) with -1 pads, and whether each is valid, i.e. a
-    real child of a live beam slot)."""
+def expand_beam(children: torch.Tensor, parents: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The candidates of a beam: (the children (N, B*maxc) of each parent,
+    clamped into the children table, with their -1 pads; whether each is
+    valid, i.e. a real child of a live beam slot)."""
     N, B = parents.shape
     maxc = children.shape[1]
-    safe_parents = parents.clamp(0, children.shape[0] - 1)
-    cand = children[safe_parents].reshape(N, B * maxc)
+    cand = children[parents.clamp(0, children.shape[0] - 1)].reshape(N, B * maxc)
     valid = (cand >= 0) & (parents >= 0).repeat_interleave(maxc, dim=1)
-    return safe_parents, cand, valid
+    return cand, valid
 
 
 def select_beam(
@@ -753,8 +700,7 @@ class CompiledHierModel:
             pending = []
             if smat.issparse(X):
                 A = X.tocsr()
-                max_nnz = int(np.diff(A.indptr).max()) if N else 1
-                cap = max(64, 1 << max(0, max_nnz - 1).bit_length())
+                cap = query_cap(A)
                 has_dense = self.uses_dense_queries(batch, cap)
                 # the packed wires encode the host-padded block; the float32
                 # wire's block is the CSR slice's, built where it is read
@@ -1076,7 +1022,7 @@ def save_compiled_layers(layers: Sequence[DeviceLayer], bias: float, nr_features
     """Write device layouts for predict-only loading, in the JAX package's
     format: ``compiled.json`` (bias, nr_features, each layer's kind and
     nr_labels) and ``layer_{d}.npz`` with ``children`` int32 and ``W``
-    (dense) or ``packed`` (plabel).  ``parent_packed`` is rebuilt at load."""
+    (dense) or ``packed`` (plabel)."""
     os.makedirs(folder, exist_ok=True)
     meta = {"bias": bias, "nr_features": nr_features, "layers": []}
     for d, layer in enumerate(layers):
@@ -1092,15 +1038,10 @@ def save_compiled_layers(layers: Sequence[DeviceLayer], bias: float, nr_features
 
 
 def _layer_from_npz(path: str, kind: str, nr_labels: int, device: DeviceLike) -> DeviceLayer:
-    """One ``layer_{d}.npz`` on ``device``; a plabel layer's parent_packed is
-    built on the host from its packed rows and children table."""
+    """One ``layer_{d}.npz`` on ``device``."""
+    weights = "W" if kind == "dense" else "packed"
     with np.load(path) as z:
-        arrays = {"kind": kind, "nr_labels": nr_labels, "children": z["children"]}
-        if kind == "dense":
-            arrays["W"] = z["W"]
-        else:
-            arrays["packed"] = z["packed"]
-            arrays["parent_packed"] = build_parent_packed(arrays["packed"], arrays["children"])
+        arrays = {"kind": kind, "nr_labels": nr_labels, "children": z["children"], weights: z[weights]}
     return layers_from_numpy([arrays], device)[0]
 
 

@@ -8,8 +8,6 @@ the final P-sum of the intersection), with atol=1e-7, about one float32 ulp
 of the path values' scale (~1), for path values that cancel towards zero.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import scipy.sparse as smat
@@ -21,6 +19,7 @@ from pecos_tpu_torch.xmc.inference import (
     build_device_layer,
     layers_from_numpy,
     prepare_queries_padded,
+    query_cap,
 )
 
 BEAM, TOPK = 3, 10
@@ -57,7 +56,8 @@ def make_queries(N, D, max_nnz, feat_hi, seed):
     return smat.csr_matrix((vals, np.concatenate(ids), indptr), shape=(N, D))
 
 
-def jax_layer_arrays(jax_model, drop_parent_packed=False):
+def jax_layer_arrays(jax_model):
+    """The JAX model's device layers as numpy arrays, ``parent_packed`` included."""
     out = []
     for l in jax_model.layers:
         d = {"kind": l.kind, "nr_labels": l.nr_labels, "children": np.asarray(l.children)}
@@ -65,8 +65,7 @@ def jax_layer_arrays(jax_model, drop_parent_packed=False):
             d["W"] = np.asarray(l.W)
         else:
             d["packed"] = np.asarray(l.packed)
-            if not drop_parent_packed:
-                d["parent_packed"] = np.asarray(l.parent_packed)
+            d["parent_packed"] = np.asarray(l.parent_packed)
         out.append(d)
     return out
 
@@ -82,13 +81,11 @@ CASES = {
 }
 
 
-def _models(case, drop_parent_packed=False):
+def _models(case):
     D, sizes, layouts, nnz, feat_hi, N, q_nnz, _ = CASES[case]
     Ws, Cs = make_chain(D, sizes, nnz, feat_hi, seed=len(case))
     jm = JaxModel.from_host_chain(Ws, Cs, 1.0, layouts=layouts)
-    if drop_parent_packed:
-        jm.layers = [dataclasses.replace(l, parent_packed=None) for l in jm.layers]
-    tm = CompiledHierModel(layers_from_numpy(jax_layer_arrays(jm, drop_parent_packed), "cpu"), 1.0, D)
+    tm = CompiledHierModel(layers_from_numpy(jax_layer_arrays(jm), "cpu"), 1.0, D)
     X = make_queries(N, D, q_nnz, feat_hi, seed=N)
     return jm, tm, X, (Ws, Cs, layouts)
 
@@ -120,11 +117,32 @@ def test_sparse_predict_matches_jax(case, pp):
     assert_same_predictions(jm.predict(X, beam_size=BEAM, only_topk=TOPK, post_processor=pp), P_port)
 
 
-def test_per_label_packed_rows_match_jax():
-    """Layers without parent_packed score through per-candidate row gathers."""
-    jm, tm, X, _ = _models("scatter", drop_parent_packed=True)
-    assert all(l.parent_packed is None for l in jm.layers + tm.layers)
-    assert_same_predictions(jm.predict(X, beam_size=BEAM, only_topk=TOPK), tm.predict(X, beam_size=BEAM, only_topk=TOPK))
+def test_permuted_uneven_label_level_matches_jax():
+    """A label level dealt to leaf clusters of uneven sizes by a seeded
+    permutation, as the benchmark's tree deals it: the children table holds
+    -1 pads and a cluster's labels are scattered packed rows.  The port takes
+    the JAX package's layer arrays, ``parent_packed`` included, keeps the
+    packed rows alone, and predicts as the JAX package does."""
+    D, sizes, layouts, nnz, feat_hi, N, q_nnz, _ = CASES["scatter"]
+    Ws, Cs = make_chain(D, sizes, nnz, feat_hi, seed=11)
+    rng = np.random.default_rng(11)
+    L, n_leaf = sizes[-1], sizes[-2]
+    leaf = np.empty(L, np.int64)
+    counts = rng.multinomial(L - n_leaf, np.full(n_leaf, 1.0 / n_leaf)) + 1  # a label at least a cluster
+    leaf[rng.permutation(L)] = np.repeat(np.arange(n_leaf), counts)
+    Cs[-1] = smat.csc_matrix((np.ones(L, np.float32), (np.arange(L), leaf)), shape=(L, n_leaf))
+    jm = JaxModel.from_host_chain(Ws, Cs, 1.0, layouts=layouts)
+    arrays = jax_layer_arrays(jm)
+    assert "parent_packed" in arrays[-1] and (arrays[-1]["children"] < 0).any()
+    tm = CompiledHierModel(layers_from_numpy(arrays, "cpu"), 1.0, D)
+    for got, want in zip(tm.layers[1:], arrays[1:]):
+        assert got.kind == "plabel" and got.W is None and not hasattr(got, "parent_packed")
+        np.testing.assert_array_equal(got.packed.numpy(), want["packed"])
+        assert got.nbytes == got.children.numel() * 8 + got.packed.numel() * 4
+    X = make_queries(N, D, q_nnz, feat_hi, seed=N)
+    for pp in ("l3-hinge", "sigmoid"):
+        kw = dict(beam_size=BEAM, only_topk=TOPK, post_processor=pp)
+        assert_same_predictions(jm.predict(X, **kw), tm.predict(X, **kw))
 
 
 def test_dense_queries_match_jax():
@@ -150,12 +168,22 @@ def test_build_device_layer_matches_jax(case):
     for got, want in zip(port.layers, jax_layer_arrays(jm)):
         assert (got.kind, got.nr_labels) == (want["kind"], want["nr_labels"])
         np.testing.assert_array_equal(got.children.numpy(), want["children"])
-        for name in ("W", "packed", "parent_packed"):
+        for name in ("W", "packed"):
             if name in want:
                 np.testing.assert_array_equal(getattr(got, name).numpy(), want[name])
     # default layouts follow the same size rule
     auto = build_device_layer(Ws[2], Cs[2], device="cpu")
     assert auto.kind == ("plabel" if (Ws[2].shape[0] * Ws[2].shape[1]) > (1 << 24) else "dense")
+
+
+@pytest.mark.parametrize("row_nnz, cap", [([], 64), ([0, 0], 64), ([3, 64], 64), ([65, 1], 128), ([1000], 1024)])
+def test_query_cap(row_nnz, cap):
+    """The padded width: the longest row rounded up to a power of two, at least 64."""
+    indptr = np.concatenate([[0], np.cumsum(row_nnz, dtype=np.int64)]).astype(np.int64)
+    n = int(indptr[-1])
+    A = smat.csr_matrix((np.ones(n, np.float32), np.arange(n) % 2000, indptr), shape=(len(row_nnz), 2000))
+    assert query_cap(A) == cap
+    assert prepare_queries_padded(A)[0].shape == (len(row_nnz), cap)
 
 
 def test_prepare_queries_padded_pads_with_d_plus_one():

@@ -181,8 +181,8 @@ def make_rows_case(kind, seed):
         rows = rng.integers(0, R, size=(N, K))
         rows[rng.uniform(size=(N, K)) < 0.25] = -1
     elif kind == "parent-layout":
-        # the table as parent_packed (n_parents, maxc, 2P) with zero rows for
-        # missing children; a beam of 4 parents, maxc = 4
+        # runs of maxc = 4 consecutive rows, the children of a beam of 4
+        # parents where labels are numbered by parent, some rows zero
         maxc, n_parents = 4, R // 4
         table[rng.uniform(size=R) < 0.2] = 0
         parents = rng.integers(0, n_parents, size=(N, 4))

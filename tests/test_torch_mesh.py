@@ -4,7 +4,7 @@ on the same models and queries.
 The JAX package runs on conftest's 8 virtual CPU devices; the port's mesh is
 the CPU repeated 8 times, which gives the same (dp, lp) = (4, 2); meshes of
 (1, 4) run too.  The toy model's bottom layer has 498 labels, which lp=4 pads
-to 500, and one toy has 62 parents there, which lp=4 pads to 64.  Labels must
+to 500; one toy has 62 parents there, so its clusters differ in size.  Labels must
 be equal; values within rtol 1e-5 (float32 sums in another order).  On the
 CPU, K1's plain version scores the sparse engine.
 """
@@ -88,8 +88,8 @@ def test_label_sharded_predict_matches_jax(force_plabel):
 
 
 def test_label_sharded_placement():
-    """Each shard holds 1/lp of the padded label columns (dense engine) or of
-    the padded parents (sparse engine), on its own device, built once."""
+    """Each shard holds 1/lp of the padded label columns (dense layers) or of
+    the padded packed rows (plabel layers), on its own device, built once."""
     jm, _ = _toy_model()
     _, pc = _compiled(jm, ["dense", "dense", "plabel"])
     pmesh = mesh.make_mesh(8, devices=CPU8)
@@ -98,16 +98,12 @@ def test_label_sharded_placement():
     L = pc.layers[-1].nr_labels
     Lp = -(-L // lp) * lp
     for row in labels:
-        for j, layers in enumerate(row):
+        for layers in row:
             assert layers[-1].packed.shape == (Lp // lp, pc.layers[-1].packed.shape[1])
             assert layers[0].W.shape == (pc.layers[0].W.shape[0], -(-pc.layers[0].nr_labels // lp))
-    parents = mesh.mesh_layers(pc, pmesh, "parents")
-    n_par = pc.layers[-1].parent_packed.shape[0]
-    for row in parents:
-        for layers in row:
-            assert layers[-1].parent_packed.shape == (-(-n_par // lp),) + tuple(pc.layers[-1].parent_packed.shape[1:])
-    assert mesh.mesh_layers(pc, pmesh, "parents") is parents  # reused, not rebuilt
-    # lp=4: 498 labels pad to 500, 64 parents split evenly
+            assert layers[-1].children.shape == pc.layers[-1].children.shape  # the whole children table
+    assert mesh.mesh_layers(pc, pmesh, "labels") is labels  # reused, not rebuilt
+    # lp=4: 498 labels pad to 500
     m4 = mesh.make_mesh(4, dp=1, devices=CPU8)
     blocks = [row[-1] for row in mesh.mesh_layers(pc, m4, "labels")[0]]
     assert [b.packed.shape[0] for b in blocks] == [125] * 4
@@ -116,9 +112,10 @@ def test_label_sharded_placement():
 
 
 def test_label_sharded_sparse_matches_jax_and_single_device():
-    """The sparse engine (parent blocks through K1's by-id path, row -1 for a
-    parent a shard does not own): the JAX package's predict_sharded and the
-    port's single-device predict, with and without padded parents."""
+    """The sparse engine (label blocks of packed rows through K1 by candidate
+    id, row -1 for a candidate a shard does not own): the JAX package's
+    predict_sharded and the port's single-device predict, with and without
+    padded labels, with clusters of equal and of unequal sizes."""
     kw = dict(beam_size=4, only_topk=5)
     for L1, n in ((64, 8), (64, 4), (62, 4)):
         jm, _ = _toy_model(L1=L1)
@@ -128,7 +125,7 @@ def test_label_sharded_sparse_matches_jax_and_single_device():
         got = mesh.predict_sharded(pmesh, pc, Xq, **kw)
         _assert_same_csr(got, jax_mesh.predict_sharded(jmesh, jc, Xq, **kw))
         _assert_same_csr(got, pc.predict(Xq, **kw))
-    assert mesh.mesh_layers(pc, pmesh, "parents")[0][0][-1].parent_packed.shape[0] == 16  # 62 parents padded to 64
+    assert mesh.mesh_layers(pc, pmesh, "labels")[0][0][-1].packed.shape[0] == 125  # 498 labels padded to 500
     # the engine itself, and batches that do not divide by dp (23 rows, batches of 8 over dp 4)
     pmesh = mesh.make_mesh(8, devices=CPU8)
     labels, _ = mesh.shard_chain_predict_labels_sparse(pmesh, pc, Xq, **kw)
@@ -200,4 +197,4 @@ def test_dryrun(n_devices):
     out = dryrun.dryrun(mesh.make_mesh(devices=["cpu"] * n_devices))
     lp = out["mesh"]["lp"]
     assert out["bottom_W"][1][1] * lp == out["bottom_W"][0][1]
-    assert out["parent_packed"][1][0] * lp == out["parent_packed"][0][0]
+    assert out["packed"][1][0] * lp == out["packed"][0][0]
