@@ -69,16 +69,17 @@ class span:
 class device_span:
     """Context manager: CUDA events before and after the block on
     ``device``'s current stream; ``settle()`` adds the microseconds between
-    them to counter ``name``.  On a device other than a CUDA one it records
-    nothing."""
+    them to counter ``name``.  ``end`` is the second event once the block
+    has closed, so a caller can ask whether the card has reached it.  On a
+    device other than a CUDA one it records nothing and ``end`` is None."""
 
-    __slots__ = ("name", "device", "_start")
+    __slots__ = ("name", "device", "_start", "end")
 
     def __init__(self, name: str, device: torch.device):
         self.name, self.device = name, device
 
     def __enter__(self) -> "device_span":
-        self._start = None
+        self._start = self.end = None
         if self.device.type == "cuda":
             self._start = torch.cuda.Event(enable_timing=True)
             self._start.record(torch.cuda.current_stream(self.device))
@@ -86,9 +87,9 @@ class device_span:
 
     def __exit__(self, *exc) -> bool:
         if self._start is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record(torch.cuda.current_stream(self.device))
-            _PENDING.append((self.name, self._start, end))
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.end.record(torch.cuda.current_stream(self.device))
+            _PENDING.append((self.name, self._start, self.end))
         return False
 
 

@@ -44,7 +44,7 @@ from pecos_tpu_torch.utils import profile_util, smat_util
 from pecos_tpu_torch.utils.torch_util import DeviceLike, resolve_device
 from pecos_tpu_torch.xmc.postprocessor import PostProcessor
 from . import network
-from .module import MLProblemWithText, build_active_label_batches, tokenize_corpus
+from .module import CorpusTokens, MLProblemWithText, build_active_label_batches, tokenize_corpus
 
 LOGGER = logging.getLogger(__name__)
 
@@ -468,7 +468,7 @@ class TransformerMatcher(pecos_tpu_torch.BaseClass):
         head's predictions are ensembled with the concat model's."""
         pred_params = self.get_pred_params() if pred_params is None else self.PredParams.from_dict(pred_params)
         pred_params.override_with_kwargs(kwargs)
-        toks = tokenize_corpus(self.tokenizer, corpus, pred_params.truncate_length)
+        toks = CorpusTokens(self.tokenizer, corpus, pred_params.truncate_length)
         return self._predict_tokens(toks, csr_codes, pred_params, X_feat)
 
     def _predict_tokens(self, toks, csr_codes, pred_params, X_feat=None) -> Tuple[smat.csr_matrix, np.ndarray]:

@@ -35,7 +35,7 @@ from pecos_tpu_torch.xmc import Indexer, LabelEmbeddingFactory
 from pecos_tpu_torch.xmc.xlinear import XLinearModel
 from . import network
 from .matcher import TransformerMatcher
-from .module import MLProblemWithText, tokenize_corpus
+from .module import CorpusTokens, MLProblemWithText
 
 LOGGER = logging.getLogger(__name__)
 
@@ -143,7 +143,7 @@ class XTransformer(pecos_tpu_torch.BaseClass):
         matcher's head is not scored).  kwargs: truncate_length."""
         matcher = self.text_encoder
         pred_params = matcher.get_pred_params().override_with_kwargs(kwargs)
-        return matcher._embed(tokenize_corpus(matcher.tokenizer, corpus, pred_params.truncate_length))
+        return matcher._embed(CorpusTokens(matcher.tokenizer, corpus, pred_params.truncate_length))
 
     def predict(
         self,

@@ -72,6 +72,23 @@ def tokenize_corpus(tokenizer, corpus: Sequence[str], truncate_length: int = 128
         return out
 
 
+class CorpusTokens:
+    """A corpus tokenized a block at a time, in place of the whole corpus's
+    arrays: ``network.encode_batches`` asks for each block of texts after it
+    has enqueued the forward before it, so the host's tokenizer runs while
+    the card encodes.  ``block(start, end)`` is ``tokenize_corpus`` over
+    those texts (span ``pecos.tokenize`` a block)."""
+
+    def __init__(self, tokenizer, corpus: Sequence[str], truncate_length: int = 128):
+        self.tokenizer, self.corpus, self.truncate_length = tokenizer, list(corpus), truncate_length
+
+    def __len__(self) -> int:
+        return len(self.corpus)
+
+    def block(self, start: int, end: int) -> dict:
+        return tokenize_corpus(self.tokenizer, self.corpus[start:end], self.truncate_length)
+
+
 class XMCTextDataset:
     """Tokenized text with its label (Y), matching (M) and relevance (R)
     matrices, cut into shards: ``get_shard(start, end)``, ``save(dir,

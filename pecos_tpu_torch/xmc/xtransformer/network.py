@@ -332,26 +332,54 @@ def pooled_embedding(encoder_outputs, attention_mask: torch.Tensor) -> torch.Ten
     return (h * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
 
 
-def encode_batches(encoder, toks: dict, device: DeviceLike, batch_size: int = 256) -> torch.Tensor:
-    """Pooled embeddings (N, H) of tokenized text on ``device`` (eval mode,
-    no gradient), ``batch_size`` rows a forward.  Records span
-    ``pecos.encode``, the card's time in ``pecos.encode.device_us`` (read by
-    ``profile_util.settle()`` after the fetch), and counters
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host int array as int64 on ``device``.  To a CUDA device it goes
+    from pinned memory and does not wait for the card; the caching host
+    allocator records the copy and reuses that memory only once it is done."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.int64))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def encode_batches(encoder, toks, device: DeviceLike, batch_size: int = 256) -> torch.Tensor:
+    """Pooled embeddings (N, H) of text on ``device`` (eval mode, no
+    gradient), ``batch_size`` texts a forward.  ``toks`` is either the dict
+    of tokenized arrays, whose blocks are sliced, or a
+    ``module.CorpusTokens``, whose blocks are tokenized here: each block
+    after the forward before it has been enqueued, so the host tokenizes
+    while the card encodes.  On a CUDA device each block's tokens go up from
+    pinned memory without waiting for the forward before it.
+
+    Records span ``pecos.encode`` over the call; the card's time of each
+    forward, its upload included, in ``pecos.encode.device_us`` (read by
+    ``profile_util.settle()`` after the fetch); counters
     ``pecos.encode.texts``, ``.tokens`` (unmasked) and ``.slots`` (texts x
-    the padded length)."""
+    the padded length).  Of a ``CorpusTokens``, also
+    ``pecos.tokenize.blocks``, and ``pecos.tokenize.hidden``: the blocks
+    whose tokenizing ended before the card had finished the forward before
+    them (the event is asked, never waited for)."""
     device = resolve_device(device)
-    ids, am = toks["input_ids"], toks["attention_mask"]
-    profile_util.count("pecos.encode.texts", ids.shape[0])
-    profile_util.count("pecos.encode.tokens", int(am.sum()))
-    profile_util.count("pecos.encode.slots", ids.size)
-    out = []
+    sliced = isinstance(toks, dict)
+    out, forward = [], None
     training = encoder.training
     encoder.eval()
-    with torch.no_grad(), profile_util.span("pecos.encode"), profile_util.device_span("pecos.encode.device_us", device):
-        for s in range(0, ids.shape[0], batch_size):
-            ii = torch.from_numpy(np.ascontiguousarray(ids[s : s + batch_size], np.int64)).to(device)
-            mm = torch.from_numpy(np.ascontiguousarray(am[s : s + batch_size], np.int64)).to(device)
-            out.append(pooled_embedding(encoder(input_ids=ii, attention_mask=mm), mm))
+    with torch.no_grad(), profile_util.span("pecos.encode"):
+        for s in range(0, toks["input_ids"].shape[0] if sliced else len(toks), batch_size):
+            if sliced:
+                ids, am = toks["input_ids"][s : s + batch_size], toks["attention_mask"][s : s + batch_size]
+            else:
+                block = toks.block(s, s + batch_size)
+                ids, am = block["input_ids"], block["attention_mask"]
+                profile_util.count("pecos.tokenize.blocks")
+                if forward is not None and forward.end is not None and not forward.end.query():
+                    profile_util.count("pecos.tokenize.hidden")
+            profile_util.count("pecos.encode.texts", ids.shape[0])
+            profile_util.count("pecos.encode.tokens", int(am.sum()))
+            profile_util.count("pecos.encode.slots", ids.size)
+            with profile_util.device_span("pecos.encode.device_us", device) as forward:
+                ii, mm = (_upload(a, device) for a in (ids, am))
+                out.append(pooled_embedding(encoder(input_ids=ii, attention_mask=mm), mm))
     encoder.train(training)
     H = hidden_size(encoder.config)
     return torch.cat(out) if out else torch.zeros((0, H), device=device)

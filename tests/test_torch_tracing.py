@@ -265,17 +265,24 @@ def test_text_spans_and_counters_of_xtransformer_predict(xtf, texts):
         assert c["pecos.encode.texts"] == calls * len(texts)
         assert c["pecos.encode.tokens"] == calls * tokens
         assert c["pecos.encode.slots"] == calls * len(texts) * TEXT_LENGTH
+        assert c["pecos.tokenize.blocks"] == calls  # 30 texts: one block of 256
         assert "pecos.encode.device_us" not in c  # no card: no device time
+        assert "pecos.tokenize.hidden" not in c  # nor a forward to hide behind
 
 
 def test_text_spans_follow_each_other_in_a_profiler_trace(xtf, texts, tmp_path):
+    """Each block's ``pecos.tokenize`` lies inside the call's one
+    ``pecos.encode``; then the fetch, the concat and the ranker follow."""
+    texts = texts * 20  # 600 texts: blocks of 256, 256 and 88
     X_feat = smat.random(len(texts), D - H, density=0.1, format="csr", random_state=3, dtype=np.float32)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         xtf.predict(texts, X_feat=X_feat, only_topk=5, beam_size=2)
     ev = {}
     for e in annotations(prof, tmp_path):
         ev.setdefault(e["name"], []).append(e)
-    order = ["pecos.tokenize", "pecos.encode", "pecos.embed_fetch", "pecos.concat", "pecos.predict"]
+    assert len(ev["pecos.tokenize"]) == 3
+    assert all(inside(t, ev["pecos.encode"][0]) for t in ev["pecos.tokenize"])
+    order = ["pecos.encode", "pecos.embed_fetch", "pecos.concat", "pecos.predict"]
     assert all(len(ev[name]) == 1 for name in order)
     for a, b in zip(order, order[1:]):
         assert ev[a][0]["ts"] + ev[a][0]["dur"] <= ev[b][0]["ts"], (a, b)
@@ -292,6 +299,21 @@ def test_encode_batches_counts_every_forward_of_one_call(xtf, texts):
     assert snap["spans"]["pecos.encode"]["n"] == 1
     assert snap["counters"] == {"pecos.encode.texts": len(texts), "pecos.encode.tokens": int(toks["attention_mask"].sum()),
                                 "pecos.encode.slots": len(texts) * TEXT_LENGTH}
+
+
+@pytest.mark.parametrize("n", [0, 1, 6, 7, 8, 17, 30])
+def test_corpus_tokens_tokenize_once_a_block_inside_one_encode(xtf, texts, n):
+    from pecos_tpu_torch.xmc.xtransformer import network
+    from pecos_tpu_torch.xmc.xtransformer.module import CorpusTokens
+
+    matcher = xtf.text_encoder
+    network.encode_batches(matcher.encoder, CorpusTokens(matcher.tokenizer, texts[:n], TEXT_LENGTH), "cpu", batch_size=7)
+    snap = profile_util.snapshot()
+    blocks = -(-n // 7)
+    assert snap["spans"]["pecos.encode"]["n"] == 1
+    assert snap["spans"].get("pecos.tokenize", {"n": 0})["n"] == blocks
+    assert snap["counters"].get("pecos.tokenize.blocks", 0) == blocks
+    assert "pecos.tokenize.hidden" not in snap["counters"]
 
 
 class FakeEvent:
@@ -331,6 +353,41 @@ def test_device_span_settles_only_events_the_card_has_reached(monkeypatch):
     profile_util.settle()
     profile_util.settle()
     assert profile_util.snapshot()["counters"] == {"dev_us": 1500}
+
+
+@pytest.mark.parametrize("done", [set(), {0}, {1, 3}, {0, 1, 2, 3}])
+def test_one_device_span_a_forward_and_hidden_blocks_where_the_card_is_behind(xtf, texts, monkeypatch, done):
+    """A corpus of five blocks on a card of fake events: one event pair a
+    forward, and block j + 1 counts as hidden exactly when forward j's end
+    event is not done when its tokenizing ends."""
+    from pecos_tpu_torch.xmc.xtransformer import network
+    from pecos_tpu_torch.xmc.xtransformer.module import CorpusTokens
+
+    class OnCard(profile_util.device_span):  # the events of a card, the forward on the CPU
+        def __init__(self, name, device):
+            super().__init__(name, torch.device("cuda", 0))
+
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    monkeypatch.setattr(profile_util, "device_span", OnCard)
+    FakeEvent.made.clear()
+    matcher = xtf.text_encoder
+
+    def tokenizer(*args, **kwargs):  # forward j has ended by block j + 1's end where j is in ``done``
+        j = len(FakeEvent.made) // 2 - 1
+        if j in done:
+            FakeEvent.made[2 * j + 1].done = True
+        return matcher.tokenizer(*args, **kwargs)
+
+    network.encode_batches(matcher.encoder, CorpusTokens(tokenizer, texts, TEXT_LENGTH), "cpu", batch_size=7)
+    assert len(FakeEvent.made) == 2 * 5
+    c = profile_util.snapshot()["counters"]
+    assert c["pecos.tokenize.blocks"] == 5
+    assert c.get("pecos.tokenize.hidden", 0) == 4 - len(done)  # the first block is never hidden
+    for e in FakeEvent.made:
+        e.done = True
+    profile_util.settle()
+    assert profile_util.snapshot()["counters"]["pecos.encode.device_us"] == 5 * 1500
 
 
 def test_device_span_records_nothing_off_the_card():

@@ -3,7 +3,9 @@
 ``transformers``, no ``tokenizers``, nothing of the port) on seeded random
 weights, at a tiny BERT: the pooled embeddings of ``encode_batches``, the
 token ids of ``wordpiece_tokenizer``, and ``XTransformer.predict``
-(concat-only) through the benchmark's XR-Transformer kind on a tiny tree."""
+(concat-only) through the benchmark's XR-Transformer kind on a tiny tree.
+Also the pipelined encoder, which tokenizes a block at a time, against the
+whole corpus's arrays: bit-equal embeddings, counters and predictions."""
 
 import os
 import tempfile
@@ -12,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from pecos_tpu_torch.xmc.xtransformer import network
-from pecos_tpu_torch.xmc.xtransformer.module import tokenize_corpus
+from pecos_tpu_torch.utils import profile_util
+from pecos_tpu_torch.xmc.xtransformer import TransformerMatcher, network
+from pecos_tpu_torch.xmc.xtransformer.module import CorpusTokens, tokenize_corpus
 from portbench.models import xtransformer, xtransformer_reference
 
 CPU = torch.device("cpu")
@@ -98,3 +101,72 @@ def test_xtransformer_predict_matches_the_reference():
     assert clear.sum() >= 80
     for r in np.nonzero(clear)[0]:
         assert set(labels[r]) == set(out["labels"][r]), r
+
+
+# ---- the pipelined path (a CorpusTokens, tokenized a block at a time) against the whole corpus's arrays ----
+
+ENCODE_COUNTERS = ("pecos.encode.texts", "pecos.encode.tokens", "pecos.encode.slots")
+
+
+def encode_with_counters(encoder, toks, batch_size):
+    profile_util.reset()
+    emb = network.encode_batches(encoder, toks, CPU, batch_size=batch_size).numpy()
+    counters = profile_util.snapshot()["counters"]
+    profile_util.reset()
+    return emb, {k: counters.get(k, 0) for k in ENCODE_COUNTERS}
+
+
+@pytest.mark.parametrize("n", [0, 1, 6, 7, 8, 17])
+def test_blockwise_tokenizing_encodes_bit_equal_to_the_whole_corpus(tokenizer, texts, n):
+    """Batches of 7: corpora of 0, 1, 7 - 1, 7, 7 + 1 and 2 x 7 + 3 texts,
+    among them texts longer than the truncate length."""
+    corpus = sorted(texts, key=lambda t: -len(t.split()))[:n]  # the longest first
+    assert n == 0 or len(corpus[0].split()) > LENGTH - 2
+    encoder = network.random_encoder("bert", TINY_BERT, seed=3)
+    # the tokenizer refuses an empty list: no texts are arrays of no rows
+    whole = (tokenize_corpus(tokenizer, corpus, LENGTH) if n
+             else {k: np.zeros((0, LENGTH), np.int32) for k in ("input_ids", "attention_mask")})
+    want, want_counts = encode_with_counters(encoder, whole, 7)
+    got, got_counts = encode_with_counters(encoder, CorpusTokens(tokenizer, corpus, LENGTH), 7)
+    assert got.shape == want.shape == (n, TINY_BERT["hidden_size"])
+    np.testing.assert_array_equal(got, want)
+    assert got_counts == want_counts
+
+
+@pytest.fixture(scope="module")
+def pipeline_program():
+    """The benchmark kind's tiny program and 515 queries: encoder blocks of
+    256, 256 and 3 texts."""
+    model = xtransformer.Model(CONFIG, 2**31 + 13, CPU)
+    lengths = np.random.default_rng(1).integers(4, 60, 515)
+    Q = xtransformer.queries(model, 515, lengths, {"text_words": WORDS}, 2**31 + 13, CPU)
+    return xtransformer.Program(model, CPU), Q
+
+
+def assert_csr_equal(a, b):
+    a, b = a.tocsr(), b.tocsr()
+    assert a.shape == b.shape
+    for name in ("indptr", "indices", "data"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+
+def test_xtransformer_predict_equals_the_whole_corpus_path(pipeline_program):
+    prog, Q = pipeline_program
+    xtf = prog.xtf
+    matcher = xtf.text_encoder
+    whole = tokenize_corpus(matcher.tokenizer, Q.texts, matcher.pred_params.truncate_length)
+    want = xtf.concat_model.predict(TransformerMatcher.concat_features(Q.X, matcher._embed(whole)),
+                                    **{k: v for k, v in prog.kw.items() if k != "ens_method"})
+    assert_csr_equal(prog.predict(Q), want)
+    np.testing.assert_array_equal(xtf.encode(Q.texts), matcher._embed(whole))
+
+
+def test_matcher_predict_equals_the_whole_corpus_path(pipeline_program):
+    prog, Q = pipeline_program
+    matcher = prog.xtf.text_encoder
+    pred_params = matcher.get_pred_params()
+    whole = tokenize_corpus(matcher.tokenizer, Q.texts, pred_params.truncate_length)
+    want_P, want_emb = matcher._predict_tokens(whole, None, pred_params)
+    got_P, got_emb = matcher.predict(Q.texts)
+    assert_csr_equal(got_P, want_P)
+    np.testing.assert_array_equal(got_emb, want_emb)
