@@ -8,6 +8,7 @@
     python3 chip_smoke.py --profile-ann        # phases 1-2, then torch.profiler over phase 11's dense build and sparse predict, and phase 15c's build at 20,000 points
     python3 chip_smoke.py --profile-predict    # phases 1-2, then torch.profiler over phase 6's batch loop and one predict
     python3 chip_smoke.py --f8-cost PARENT     # phases 1-2, then the F8 solve and one phase-13b member's train under PARENT's package and this one's
+    python3 chip_smoke.py --grouped-gemm       # phases 1-2, then the grouped GEMM against its plain version and timed at the expert layer's shapes
 
 Phases, each printing a line; any failed check raises and the run exits
 non-zero:
@@ -635,6 +636,80 @@ def time_k1(device, name, N, K, P, Qn, layout, pad, bias, R, iters):
         "composite_ms": ms["composite"], "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
         "share": bound_ms / ms["kernel"],
     }
+
+
+# the grouped GEMM at Moonlight-16B-A3B's expert layer: 256 texts of 128 slots, top-6 of 64 experts,
+# ~7% of the slots pads (their pairs past the last group); gate-up (N 2,816, K 2,048) and down (N 2,048, K 1,408)
+GG_SHAPES = (("gate_up", 2816, 2048), ("down", 2048, 1408))
+GG_PAIRS, GG_EXPERTS, GG_PAD_SHARE = 256 * 128 * 6, 64, 0.07
+GG_SOURCE = "pecos_tpu_torch/ops/csrc/grouped_gemm.cu"
+BF16_FLOP_PER_S, HBM_BYTES_PER_S = 9.894e14, 3.35e12  # H100 SXM data sheet, 700 W
+
+
+def run_grouped_gemm(device, smi):
+    """The grouped GEMM kernel against its plain version (a matmul a group)
+    at the expert layer's shapes, with groups as uneven as a router under a
+    calibrated bias leaves them (busiest ~1.3x the mean) and one empty; then
+    kernel, plain and ``torch._grouped_mm`` (the library yardstick, which the
+    port never calls) timed with the L2 flushed, beside the bound (the larger
+    of operations at the bfloat16 peak and bytes at the HBM peak)."""
+    import torch
+
+    from pecos_tpu_torch.ops.grouped_gemm import grouped_gemm, grouped_gemm_reference
+
+    rng = np.random.default_rng(SEED)
+    real = int(GG_PAIRS * (1 - GG_PAD_SHARE))
+    share = rng.uniform(0.7, 1.3, GG_EXPERTS)
+    share[7] = 0.0
+    counts = np.floor(share / share.sum() * real).astype(np.int64)
+    counts[0] += real - counts.sum()
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    offsets = torch.from_numpy(bounds).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = []
+    for what, N, K in GG_SHAPES:
+        a = torch.randn((GG_PAIRS, K), generator=gen, device=device).to(torch.bfloat16)
+        w = (0.02 * torch.randn((GG_EXPERTS, N, K), generator=gen, device=device)).to(torch.bfloat16)
+        got = grouped_gemm(a, w, offsets)[:real].float()
+        plain = grouped_gemm_reference(a, w, offsets)[:real].float()
+        scale = plain.abs().mean().item()
+        err = float(((got - plain).abs() / (plain.abs() + scale)).max())
+        if err > 2.0**-7:  # the two round the same float32 sums to bfloat16: a unit of the 8th bit apart at most
+            raise RuntimeError(f"grouped GEMM {what}: kernel against plain {err!r}")
+
+        def plain_fn(a=a, w=w):
+            o = torch.zeros((a.shape[0], w.shape[1]), dtype=a.dtype, device=device)
+            for e in range(GG_EXPERTS):
+                if counts[e]:
+                    o[bounds[e] : bounds[e + 1]] = a[bounds[e] : bounds[e + 1]] @ w[e].T
+            return o
+
+        fns = {"kernel": lambda a=a, w=w: grouped_gemm(a, w, offsets), "plain": plain_fn}
+        library_error = None
+        try:
+            ends = offsets[1:].to(torch.int32)
+            lib = torch._grouped_mm(a, w.transpose(1, 2), offs=ends)[:real].float()
+            if float(((lib - plain).abs() / (plain.abs() + scale)).max()) > 2.0**-7:
+                raise RuntimeError("torch._grouped_mm disagrees with the plain version")
+            fns["library"] = lambda a=a, w=w: torch._grouped_mm(a, w.transpose(1, 2), offs=ends)
+        except (RuntimeError, AttributeError, TypeError) as e:
+            library_error = repr(e)[:200]
+        ms = time_calls(device, fns, 10)
+        ops = 2.0 * real * N * K
+        n_bytes = 2 * (real * K + GG_EXPERTS * N * K + real * N)
+        bound_ms = 1e3 * max(ops / BF16_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S)
+        row = {"shape": what, "M": GG_PAIRS, "pairs": real, "N": N, "K": K, "experts": GG_EXPERTS,
+               "busiest": int(counts.max()), "ms": ms["kernel"], "plain_ms": ms["plain"],
+               "library_ms": ms.get("library"), "library_error": library_error, "bound_ms": bound_ms,
+               "bound_by": "operations" if ops / BF16_FLOP_PER_S >= n_bytes / HBM_BYTES_PER_S else "bytes",
+               "share": bound_ms / ms["kernel"], "tflop_per_s": ops / ms["kernel"] / 1e9, "max_err": err}
+        print(f"grouped GEMM {what} [{smi}]: {json.dumps(row)}")
+        out.append(row)
+        del a, w
+        torch.cuda.empty_cache()
+    print(json.dumps({"kernels": [{"name": "grouped_gemm", "route": "cuda", "source": GG_SOURCE, "replaces": None,
+                                   "shapes": out}]}))
+    return out
 
 
 def time_calls(device, fns, iters):
@@ -2718,6 +2793,9 @@ def main():
         return 0
     if sys.argv[1:2] == ["--f8-cost"] and len(sys.argv) == 3:
         f8_cost(device, smi, os.path.abspath(sys.argv[2]))
+        return 0
+    if sys.argv[1:] == ["--grouped-gemm"]:
+        run_grouped_gemm(device, smi)
         return 0
     if sys.argv[1:] == ["--ann-options"]:
         check_k1_rows(device, [(f"{name} by id", *shape) for name, *shape in K1_OPTION_SHAPES])

@@ -1,4 +1,4 @@
-"""Build the CUDA kernels in ``csrc/*.cu`` at first use and load them with ctypes.
+"""Build the CUDA kernels in ``csrc/*.cu`` (K1, the grouped GEMM) at first use and load them with ctypes.
 
 ``nvcc`` compiles every source into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds) under
@@ -68,6 +68,9 @@ def load_library() -> ctypes.CDLL:
             vp, vp, vp, ctypes.c_int64, vp, vp, vp, *([ci] * 12), ctypes.c_float, vp
         ]
         lib.pecos_intersect_scores.restype = ci
+        # a, b, offsets, out, M, E, N, K, stream
+        lib.pecos_grouped_gemm.argtypes = [vp, vp, vp, vp, ctypes.c_int64, ci, ci, ci, vp]
+        lib.pecos_grouped_gemm.restype = ci
         lib.pecos_cuda_error_string.argtypes = [ci]
         lib.pecos_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

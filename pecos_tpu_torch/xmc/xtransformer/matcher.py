@@ -43,7 +43,7 @@ import pecos_tpu_torch
 from pecos_tpu_torch.utils import profile_util, smat_util
 from pecos_tpu_torch.utils.torch_util import DeviceLike, resolve_device
 from pecos_tpu_torch.xmc.postprocessor import PostProcessor
-from . import network
+from . import moe, network
 from .module import CorpusTokens, MLProblemWithText, build_active_label_batches, tokenize_corpus
 
 LOGGER = logging.getLogger(__name__)
@@ -189,6 +189,7 @@ class TransformerMatcher(pecos_tpu_torch.BaseClass):
         import transformers
 
         name = train_params.model_shortcut
+        network.check_pretrained(network.resolve_encoder(train_params.model_type)[1], f"model_shortcut {name!r}")
         tokenizer = transformers.AutoTokenizer.from_pretrained(name)
         if os.path.isdir(name):
             return network.load_encoder(name, train_params.model_type), tokenizer
@@ -218,6 +219,7 @@ class TransformerMatcher(pecos_tpu_torch.BaseClass):
         computed and the best weights are restored at the end."""
         train_params = cls.TrainParams.from_dict(train_params)
         train_params.override_with_kwargs(kwargs)
+        network.check_pretrained(network.resolve_encoder(train_params.model_type)[1], "TransformerMatcher.train")
         pred_params = cls.PredParams.from_dict(pred_params)
         pred_params.truncate_length = train_params.truncate_length
         slots = [resolve_device(device)] if mesh is None else [d for row in mesh.devices for d in row]
@@ -414,10 +416,13 @@ class TransformerMatcher(pecos_tpu_torch.BaseClass):
     @staticmethod
     def _fetch(emb: torch.Tensor) -> np.ndarray:
         """The embeddings on the host (span ``pecos.embed_fetch``); the
-        encoder's device time is settled once the copy has waited for it."""
+        encoder's device time is settled, and its expert layers' counts are
+        moved into the registry (``moe.take_counts``), once the copy has
+        waited for it."""
         with profile_util.span("pecos.embed_fetch"):
             out = emb.cpu().numpy()
         profile_util.settle()
+        moe.take_counts(emb.device)
         return out
 
     def _embed(self, toks, batch_size: int = 256) -> np.ndarray:
@@ -507,6 +512,7 @@ class TransformerMatcher(pecos_tpu_torch.BaseClass):
         """param.json, encoder/ (torch's save_pretrained), tokenizer/,
         head.npz, C.npz and concat_model/: the JAX package's folder, with the
         encoder in safetensors, which its loader converts."""
+        network.check_pretrained(type(self.encoder), "TransformerMatcher.save")
         os.makedirs(folder, exist_ok=True)
         param = self.append_meta(
             {"model": type(self).__name__, "train_params": self.train_params.to_dict(), "pred_params": self.pred_params.to_dict()}

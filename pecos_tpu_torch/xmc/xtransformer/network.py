@@ -15,6 +15,7 @@ neither ``flax`` nor a ``transformers`` that reads Flax files.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import os
 import struct
 from typing import Dict, Optional
@@ -26,7 +27,8 @@ from pecos_tpu_torch.utils import profile_util
 from pecos_tpu_torch.utils.torch_util import DeviceLike, resolve_device
 
 # model, config, then the tokenizer class names in order of preference: the
-# fast names are aliases in transformers 5, the only names in 4.x
+# fast names are aliases in transformers 5, the only names in 4.x.  A model
+# named by a dotted path is the port's own class (config from transformers)
 ENCODER_CLASSES: Dict[str, Dict[str, object]] = {
     "bert": dict(config="BertConfig", model="BertModel", tokenizer=("BertTokenizerFast", "BertTokenizer")),
     "roberta": dict(config="RobertaConfig", model="RobertaModel", tokenizer=("RobertaTokenizerFast", "RobertaTokenizer")),
@@ -37,10 +39,17 @@ ENCODER_CLASSES: Dict[str, Dict[str, object]] = {
         config="XLMRobertaConfig", model="XLMRobertaModel", tokenizer=("XLMRobertaTokenizerFast", "XLMRobertaTokenizer")
     ),
     "xlnet": dict(config="XLNetConfig", model="XLNetModel", tokenizer=("XLNetTokenizerFast", "XLNetTokenizer")),
+    # Moonlight-16B-A3B's architecture: latent attention and sparse experts
+    # (moe_encoder.py), predict-only; its vocabulary is a WordPiece vocab.txt
+    # here, [CLS] and [SEP] standing for BOS and EOS
+    "deepseek_v3": dict(
+        config="DeepseekV3Config", model="pecos_tpu_torch.xmc.xtransformer.moe_encoder.DeepseekV3Encoder",
+        tokenizer=("BertTokenizerFast", "BertTokenizer"),
+    ),
 }
 
 # families whose vocabulary is a WordPiece vocab.txt (model_config's vocab_file)
-_WORDPIECE = ("bert", "distilbert")
+_WORDPIECE = ("bert", "distilbert", "deepseek_v3")
 _SPECIALS = dict(unk_token="[UNK]", sep_token="[SEP]", pad_token="[PAD]", cls_token="[CLS]", mask_token="[MASK]")
 
 
@@ -55,7 +64,20 @@ def resolve_encoder(model_type: str):
     tokenizer_cls = next((getattr(transformers, n) for n in spec["tokenizer"] if hasattr(transformers, n)), None)
     if tokenizer_cls is None:
         raise ImportError(f"transformers {transformers.__version__} exports none of {spec['tokenizer']}")
-    return getattr(transformers, spec["config"]), getattr(transformers, spec["model"]), tokenizer_cls
+    module, _, name = spec["model"].rpartition(".")
+    model_cls = getattr(importlib.import_module(module) if module else transformers, name)
+    return getattr(transformers, spec["config"]), model_cls, tokenizer_cls
+
+
+def check_pretrained(model_cls, what: str) -> None:
+    """Raise NotImplementedError for a family of the port's own that has no
+    ``from_pretrained`` (``deepseek_v3``): it is predict-only, with random
+    weights from :func:`random_encoder`; ``what`` names the caller."""
+    if not hasattr(model_cls, "from_pretrained"):
+        raise NotImplementedError(
+            f"{what}: {model_cls.__name__} is predict-only in this package: no loader of published checkpoints, "
+            f"no save and no training (its grouped GEMM has no backward); draw it with network.random_encoder"
+        )
 
 
 def hidden_size(config) -> int:
@@ -88,13 +110,22 @@ def wordpiece_tokenizer(vocab_file: str):
     )
 
 
-def random_encoder(model_type: str, model_config: dict, seed: int = 0):
-    """A random-init encoder of ``model_config``'s widths: the weights are
-    drawn on the CPU from ``seed`` (torch's generator, forked so the caller's
-    state is untouched), so one seed gives one model on every machine.
-    ``vocab_file`` is the tokenizer's and is not passed to the config."""
+def random_encoder(model_type: str, model_config: dict, seed: int = 0, device: Optional[DeviceLike] = None,
+                   dtype: Optional[torch.dtype] = None):
+    """A random-init encoder of ``model_config``'s widths.  A family of the
+    port's own (``from_seed``) is drawn on ``device`` (default the CPU) and
+    rounded to ``dtype`` (default float32), each tensor from its own seed.
+    The ``transformers`` families are drawn on the CPU in float32 from
+    ``seed`` (torch's generator, forked so the caller's state is untouched),
+    so one seed gives one model on every machine; they take no ``device`` or
+    ``dtype``.  ``vocab_file`` is the tokenizer's and is not passed to the
+    config."""
     config_cls, model_cls, _ = resolve_encoder(model_type)
     cfg = config_cls(**{k: v for k, v in model_config.items() if k != "vocab_file"})
+    if hasattr(model_cls, "from_seed"):
+        return model_cls.from_seed(cfg, seed, device=resolve_device(device or "cpu"), dtype=dtype or torch.float32)
+    if device is not None or dtype is not None:
+        raise ValueError(f"{model_type!r} is drawn on the CPU in float32; it takes no device or dtype")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         return model_cls(cfg).eval()
@@ -253,6 +284,7 @@ def load_encoder(folder: str, model_type: str):
     or the JAX package's ``flax_model.msgpack`` through
     :func:`read_flax_msgpack` and :func:`encoder_state_from_flax`."""
     config_cls, model_cls, _ = resolve_encoder(model_type)
+    check_pretrained(model_cls, f"load_encoder({folder!r})")
     if any(os.path.exists(os.path.join(folder, n)) for n in _TORCH_WEIGHTS):
         return model_cls.from_pretrained(folder).eval()
     flax_path = os.path.join(folder, "flax_model.msgpack")
@@ -323,11 +355,12 @@ def squared_hinge_loss(logits: torch.Tensor, targets: torch.Tensor, cost: torch.
 
 def pooled_embedding(encoder_outputs, attention_mask: torch.Tensor) -> torch.Tensor:
     """The pooler's output where the model has a pooler (BERT, RoBERTa,
-    XLM-R), else the mean of the last hidden state over unmasked tokens."""
+    XLM-R), else the mean of the last hidden state over unmasked tokens, in
+    float32 (a bfloat16 model's too)."""
     pooled = getattr(encoder_outputs, "pooler_output", None)
     if pooled is not None:
         return pooled
-    h = encoder_outputs.last_hidden_state
+    h = encoder_outputs.last_hidden_state.float()
     m = attention_mask[..., None].to(h.dtype)
     return (h * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
 

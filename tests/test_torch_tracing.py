@@ -461,3 +461,92 @@ def test_k1_pass_share_reads_none_without_a_registry(monkeypatch):
 
     monkeypatch.delattr(profile_util, "snapshot")
     assert harness.metric_reader("k1_pass_share.batch")({}) is None
+
+
+# ---- the sparse-expert encoder: pecos.moe spans and counters, and their readers ----
+
+MOE = dict(
+    hidden_size=H, num_hidden_layers=3, first_k_dense_replace=1, intermediate_size=24, moe_intermediate_size=8,
+    n_routed_experts=8, num_experts_per_tok=2, n_shared_experts=1, kv_lora_rank=8, qk_rope_head_dim=4,
+    qk_nope_head_dim=4, v_head_dim=4, num_attention_heads=2, num_key_value_heads=2, q_lora_rank=None, n_group=1,
+    topk_group=1, routed_scaling_factor=2.446, norm_topk_prob=True, rms_norm_eps=1e-5, rope_theta=50000,
+    vocab_size=45, max_position_embeddings=16, initializer_range=0.02,
+)
+
+
+@pytest.fixture(scope="module")
+def xtf_moe(xtf):
+    """``xtf`` with a deepseek_v3 encoder of width H (two expert layers) in place of its BERT."""
+    from pecos_tpu_torch.xmc.xtransformer import TransformerMatcher, XTransformer, network
+
+    m = xtf.text_encoder
+    matcher = TransformerMatcher(network.random_encoder("deepseek_v3", MOE, seed=4), m.tokenizer, m.head,
+                                 pred_params=dict(truncate_length=TEXT_LENGTH), device="cpu")
+    return XTransformer(matcher, xtf.concat_model)
+
+
+def test_moe_spans_and_counters_of_a_predict_move_after_the_fetch(xtf_moe, texts, monkeypatch):
+    """A span and a layer count an expert layer's forward; the pairs and the
+    busiest expert's load, kept on the device, reach the registry once a
+    call, after the embeddings' fetch."""
+    from pecos_tpu_torch.xmc.xtransformer import moe
+
+    moe.take_counts("cpu")  # what other tests' forwards left
+    profile_util.reset()
+    order, settle, take = [], profile_util.settle, moe.take_counts
+    monkeypatch.setattr(profile_util, "settle", lambda: order.append("fetch") or settle())
+    monkeypatch.setattr(moe, "take_counts", lambda device: order.append("take") or take(device))
+    X_feat = smat.random(len(texts), D - H, density=0.1, format="csr", random_state=3, dtype=np.float32)
+    tokens = sum(min(len(t.split()) + 2, TEXT_LENGTH) for t in texts)
+    for calls in (1, 2):
+        xtf_moe.predict(texts, X_feat=X_feat, only_topk=5, beam_size=2)
+        snap = profile_util.snapshot()
+        assert snap["spans"]["pecos.moe"]["n"] == calls * 2  # one forward of two expert layers a call
+        c = snap["counters"]
+        assert c["pecos.moe.layers"] == calls * 2
+        assert c["pecos.moe.pairs"] == calls * 2 * MOE["num_experts_per_tok"] * tokens
+        assert c["pecos.moe.pairs"] / 8 <= c["pecos.moe.max_load"] <= c["pecos.moe.pairs"]
+    assert order == ["fetch", "take"] * 2
+
+
+def reader(name):
+    from portbench import harness
+
+    return harness.metric_reader(name)
+
+
+def moe_ctx(times, calls=4, seconds=0.004, wall=2.0, predict=0.5):
+    return {"trace": {"kernels": [("void (anonymous namespace)::grouped_gemm_kernel(CUtensorMap_st)", t) for t in times]
+                      + [("gemm_other", 1.0)], "wall_s": wall, "busy_s": 1.5},
+            "work": {"moe": {"calls": calls, "seconds": seconds, "experts": 64}, "predict": {"seconds": predict}}}
+
+
+def test_expert_roofline_reader():
+    read = reader("expert_roofline.textbatch")
+    assert read(moe_ctx([0.002] * 4)) == pytest.approx(50.0)  # 4 ms of bound in 8 ms of kernel
+    assert read(moe_ctx([])) is None  # no such kernel in the trace
+    assert read({"trace": moe_ctx([0.002])["trace"], "work": {"predict": {}}}) is None  # no expert layers
+    assert read({"trace": None, "work": None}) is None
+    with pytest.raises(ValueError, match="launches"):
+        read(moe_ctx([0.002] * 3))
+    with pytest.raises(RuntimeError, match="over 100%"):
+        read(moe_ctx([0.0009] * 4))
+
+
+def test_expert_load_reader():
+    read = reader("expert_load.textbatch")
+    ctx = moe_ctx([])
+    assert read(ctx) is None  # no counters
+    profile_util.count("pecos.moe.pairs", 6400)
+    assert read(ctx) is None
+    profile_util.count("pecos.moe.max_load", 150)
+    assert read(ctx) == pytest.approx(150.0)  # 150 against a mean of 6,400 / 64
+    assert read({"work": None}) is None
+
+
+def test_moe_mfu_reader():
+    read = reader("moe_mfu.textbatch")
+    assert read(moe_ctx([])) == pytest.approx(25.0)
+    assert read({"trace": moe_ctx([])["trace"], "work": {"predict": {"seconds": 0.5}}}) is None
+    with pytest.raises(RuntimeError, match="over 100%"):
+        read(moe_ctx([], wall=0.4))
