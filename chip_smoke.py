@@ -8,7 +8,7 @@
     python3 chip_smoke.py --profile-ann        # phases 1-2, then torch.profiler over phase 11's dense build and sparse predict, and phase 15c's build at 20,000 points
     python3 chip_smoke.py --profile-predict    # phases 1-2, then torch.profiler over phase 6's batch loop and one predict
     python3 chip_smoke.py --f8-cost PARENT     # phases 1-2, then the F8 solve and one phase-13b member's train under PARENT's package and this one's
-    python3 chip_smoke.py --grouped-gemm       # phases 1-2, then the grouped GEMM against its plain version and timed at the expert layer's shapes
+    python3 chip_smoke.py --grouped-gemm       # phases 1-2, then the grouped GEMM against its plain version and timed at the expert layer's shapes, then the expert layer's fused kernels against the unfused sequence
 
 Phases, each printing a line; any failed check raises and the run exits
 non-zero:
@@ -644,6 +644,15 @@ GG_SHAPES = (("gate_up", 2816, 2048), ("down", 2048, 1408))
 GG_PAIRS, GG_EXPERTS, GG_PAD_SHARE = 256 * 128 * 6, 64, 0.07
 GG_SOURCE = "pecos_tpu_torch/ops/csrc/grouped_gemm.cu"
 BF16_FLOP_PER_S, HBM_BYTES_PER_S = 9.894e14, 3.35e12  # H100 SXM data sheet, 700 W
+# the expert layer's main-path launches, by the row run_expert_kernels times them in: the kernel's
+# entry, its source and the unfused sequence it replaces (the store mode runs in tests and here only)
+EXPERT_KERNELS = {
+    "gate_up": ("grouped_gemm_swiglu", GG_SOURCE,
+                "grouped_gemm store mode writing h (pairs x 2I), then F.silu(h[:, :I]) * h[:, I:]"),
+    "down": ("grouped_gemm_scatter", GG_SOURCE, "grouped_gemm store mode, then pairs[order] = y (index_put)"),
+    "combine": ("expert_combine", "pecos_tpu_torch/ops/csrc/expert_combine.cu",
+                "pairs.float(), torch.bmm with the gates, where(keep), .to(bfloat16), + shared experts"),
+}
 
 
 def run_grouped_gemm(device, smi):
@@ -707,9 +716,151 @@ def run_grouped_gemm(device, smi):
         out.append(row)
         del a, w
         torch.cuda.empty_cache()
-    print(json.dumps({"kernels": [{"name": "grouped_gemm", "route": "cuda", "source": GG_SOURCE, "replaces": None,
-                                   "shapes": out}]}))
+    checks, fused = run_expert_kernels(device, smi)
+    kernels = [{"name": "grouped_gemm", "route": "cuda", "source": GG_SOURCE, "replaces": None, "main_path": False,
+                "shapes": out}]
+    for row in fused:
+        name, source, replaces = EXPERT_KERNELS[row["launch"]]
+        ms = row["ms"]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "main_path": True,
+                        "ms": ms["kernel"], "plain_ms": ms.get("plain", ms["unfused"]), "unfused_ms": ms["unfused"],
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "share": row["share"],
+                        **({"gather_ms": ms["gather"], "with_gather_ms": ms["fused"]} if "gather" in ms else {})})
+    print(json.dumps({"kernels": kernels, "expert_checks": checks}))
     return out
+
+
+def ulps_apart(a, b):
+    """Units in the last place of bfloat16 between a and b, elementwise (+0 and -0 are 0 apart)."""
+    import torch
+
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def expert_layer_case(device, seed=SEED, tokens=256 * 128, hidden=2048, width=1408, experts=GG_EXPERTS, k=6,
+                      pad_share=GG_PAD_SHARE):
+    """One expert layer forward's operands at Moonlight-16B-A3B's widths:
+    tokens x, keep (the last ~7% of slots pads), each token's k experts
+    (distinct, uneven over experts) and float32 gates, the pairs sorted by
+    expert as the layer sorts them (pads' past the last group), the offsets,
+    the weights and the shared experts' output."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((tokens, hidden), generator=gen, device=device).to(torch.bfloat16)
+    keep = torch.rand(tokens, generator=gen, device=device) >= pad_share
+    skew = torch.linspace(0.0, 0.6, experts, device=device)
+    chosen = (torch.rand((tokens, experts), generator=gen, device=device) + skew).topk(k, dim=1).indices
+    gates = torch.rand((tokens, k), generator=gen, device=device) * 0.5
+    flat = torch.where(keep[:, None].expand(tokens, k).reshape(-1), chosen.reshape(-1), experts)
+    sorted_experts, order = torch.sort(flat, stable=True)
+    offsets = torch.searchsorted(sorted_experts, torch.arange(experts + 1, device=device))
+    gate_up = (0.02 * torch.randn((experts, 2 * width, hidden), generator=gen, device=device)).to(torch.bfloat16)
+    down = (0.02 * torch.randn((experts, hidden, width), generator=gen, device=device)).to(torch.bfloat16)
+    shared = (0.1 * torch.randn((tokens, hidden), generator=gen, device=device)).to(torch.bfloat16)
+    return dict(x=x, keep=keep, gates=gates, order=order, rows=order // k, offsets=offsets, gate_up=gate_up,
+                down=down, shared=shared, k=k)
+
+
+def run_expert_kernels(device, smi):
+    """The expert layer's fused kernels at one forward of the Moonlight
+    cell (256 texts of 128 slots): the SwiGLU gate-up GEMM over the gathered
+    token rows, the down GEMM storing in token slots and the combine, each
+    checked against the unfused sequence it replaces (PyTorch's gather, the
+    plain grouped GEMM kernel, then SiLU, product, index_put, float32 bmm,
+    where, cast and add): act and the rows bit-equal, the combine within a
+    unit of bfloat16's last place.  Then each timed with the L2 flushed,
+    beside its bound, its plain version and that unfused sequence; the
+    gate-up launch alone (``kernel``), the gather, and the two together
+    (``fused``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pecos_tpu_torch.ops import expert_combine as ec
+    from pecos_tpu_torch.ops import grouped_gemm as gg
+
+    c = expert_layer_case(device)
+    x, keep, gates, order, rows, offsets = c["x"], c["keep"], c["gates"], c["order"], c["rows"], c["offsets"]
+    gate_up, down, shared, k = c["gate_up"], c["down"], c["shared"], c["k"]
+    T, H = x.shape
+    I = down.shape[2]
+    real = int(offsets[-1])
+    kept = keep[:, None].expand(T, k).reshape(-1)
+
+    def unfused_gate_up():
+        h = gg.grouped_gemm(x[rows], gate_up, offsets)
+        return F.silu(h[:, :I]) * h[:, I:]
+
+    def fused_gate_up():
+        return gg.grouped_gemm_swiglu(x[rows], gate_up, offsets)
+
+    def unfused_down(a):
+        y = gg.grouped_gemm(a, down, offsets)
+        pairs = torch.empty_like(y)
+        pairs[order] = y
+        return pairs
+
+    want_act = unfused_gate_up()
+    act = fused_gate_up()
+    want_pairs = unfused_down(want_act)
+    pairs = gg.grouped_gemm_scatter(act, down, offsets, order)
+    want_out = ec.expert_combine_reference(want_pairs, gates, keep, shared)
+    out = ec.expert_combine(pairs, gates, keep, shared)
+    plain_act = gg.grouped_gemm_swiglu_reference(x[rows], gate_up, offsets)
+    torch.cuda.synchronize()
+    checks = {
+        "pairs": real, "tokens": T, "kept_tokens": int(keep.sum()),
+        "act_bit_equal": bool(torch.equal(act[:real], want_act[:real])),
+        "rows_bit_equal": bool(torch.equal(pairs[kept], want_pairs[kept])),
+        "combine_max_ulps": int(ulps_apart(out, want_out).max()),
+        "combine_share_differing": float((out != want_out).float().mean()),
+        # the plain version rounds cuBLAS's float32 sums: a unit of bfloat16's 8th bit apart at most, then SiLU
+        "act_plain_max_rel": float(((act[:real].float() - plain_act[:real].float()).abs()
+                                    / (plain_act[:real].float().abs() + plain_act[:real].float().abs().mean())).max()),
+    }
+    print(f"expert kernels check [{smi}]: {json.dumps(checks)}")
+    if not (checks["act_bit_equal"] and checks["rows_bit_equal"]
+            and checks["combine_max_ulps"] <= 1 and checks["act_plain_max_rel"] <= 2.0**-6):
+        raise RuntimeError(f"expert kernels disagree with the unfused sequence: {checks}")
+    del want_act, want_pairs, want_out, plain_act
+    torch.cuda.empty_cache()
+
+    xg = x[rows]
+    host_offsets = offsets.cpu()  # the plain versions read the offsets on the host: no wait inside a timed launch
+    ops_up, ops_down = 2.0 * real * 2 * I * H, 2.0 * real * H * I
+    bytes_up = 2 * (real * H + c["gate_up"].numel() + real * I)
+    bytes_down = 2 * (real * I + down.numel() + real * H)
+    bytes_combine = 2 * real * H + 4 * gates.numel() + T + 2 * 2 * T * H
+    timed = {
+        "gate_up": ({"kernel": lambda: gg.grouped_gemm_swiglu(xg, gate_up, offsets),
+                     "gather": lambda: x[rows],
+                     "fused": fused_gate_up,
+                     "unfused": unfused_gate_up,
+                     "plain": lambda: gg.grouped_gemm_swiglu_reference(xg, gate_up, host_offsets)},
+                    ops_up, bytes_up),
+        "down": ({"kernel": lambda: gg.grouped_gemm_scatter(act, down, offsets, order),
+                  "unfused": lambda: unfused_down(act),
+                  "plain": lambda: gg.grouped_gemm_scatter_reference(act, down, host_offsets, order)},
+                 ops_down, bytes_down),
+        "combine": ({"kernel": lambda: ec.expert_combine(pairs, gates, keep, shared),
+                     "unfused": lambda: ec.expert_combine_reference(pairs, gates, keep, shared)},
+                    2.0 * real * H, bytes_combine),
+    }
+    rows_out = []
+    for what, (fns, ops, n_bytes) in timed.items():
+        ms = time_calls(device, fns, 10)
+        t_ops, t_bytes = ops / BF16_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        row = {"launch": what, "ms": ms, "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "share": bound_ms / ms["kernel"], "ops": ops, "bytes": n_bytes}
+        print(f"expert kernels {what} [{smi}]: {json.dumps(row)}")
+        rows_out.append(row)
+        torch.cuda.empty_cache()
+    return checks, rows_out
 
 
 def time_calls(device, fns, iters):

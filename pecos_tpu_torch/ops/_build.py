@@ -1,4 +1,4 @@
-"""Build the CUDA kernels in ``csrc/*.cu`` (K1, the grouped GEMM) at first use and load them with ctypes.
+"""Build the CUDA kernels in ``csrc/*.cu`` (K1, the grouped GEMM, the expert combine) at first use and load them with ctypes.
 
 ``nvcc`` compiles every source into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds) under
@@ -71,6 +71,15 @@ def load_library() -> ctypes.CDLL:
         # a, b, offsets, out, M, E, N, K, stream
         lib.pecos_grouped_gemm.argtypes = [vp, vp, vp, vp, ctypes.c_int64, ci, ci, ci, vp]
         lib.pecos_grouped_gemm.restype = ci
+        # a, b, offsets, out, M, E, N, K, stream
+        lib.pecos_grouped_gemm_swiglu.argtypes = [vp, vp, vp, vp, ctypes.c_int64, ci, ci, ci, vp]
+        lib.pecos_grouped_gemm_swiglu.restype = ci
+        # a, b, offsets, dest, out, M, E, N, K, stream
+        lib.pecos_grouped_gemm_scatter.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int64, ci, ci, ci, vp]
+        lib.pecos_grouped_gemm_scatter.restype = ci
+        # pairs, gates, keep, shared, out, T, k, H, stream
+        lib.pecos_expert_combine.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int64, ci, ci, vp]
+        lib.pecos_expert_combine.restype = ci
         lib.pecos_cuda_error_string.argtypes = [ci]
         lib.pecos_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

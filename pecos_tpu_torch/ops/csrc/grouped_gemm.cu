@@ -10,15 +10,35 @@
 // offsets[e] .. offsets[e+1]-1); B (E, N, K) row-major, expert e's weights
 // (an nn.Linear's (out, in) layout, so both operands are K-major); offsets
 // (E+1,) int64 on the card, ascending, offsets[0] = 0, offsets[E] <= M.
-// Rows at and past offsets[E] are not written: the expert layer sorts the
-// pairs of padding tokens there, so they cost nothing.  Output (M, N).
+// Rows at and past offsets[E] are not computed or written: the expert layer
+// sorts the pairs of padding tokens there, so they cost nothing.
 // N must be a multiple of 128 and K of 64 (the wrapper checks).
+//
+// One template, three epilogues chosen at compile time; every instance is
+// named grouped_gemm_kernel<...> in a trace:
+// - kStore: out (M, N), row r of the product in row r.
+// - kSwiglu, the expert layer's gate and up projections: B is (E, 2I, K),
+//   expert e's gate rows first, then its up rows.  A block computes 64 gate
+//   columns n0.. and the same 64 up columns I + n0.. (two 64-row TMA boxes,
+//   one 128-column accumulator), so in wgmma's accumulator layout a thread
+//   holds gate column c in acc[4j..4j+3] and up column c in acc[4(j+8)..],
+//   and the epilogue is register-local.  It stores act (M, I) =
+//   bf16(bf16(silu(bf16(gate))) * bf16(up)), SiLU in float32 with expf: the
+//   roundings of PyTorch's F.silu(h[:, :I]) * h[:, I:] on the bf16 h, bit
+//   for bit, without h (M x 2I) ever reaching device memory.
+// - kScatter, the expert layer's down projection: row r is stored in row
+//   dest[r] of out (the pair's token slot, t k + j), so the pairs come back
+//   in token order without an index_put over device memory.
+// A is read by TMA from a gathered copy of the pairs' token rows: a
+// producer that gathered them itself (16-byte cp.async by token id, placed
+// by the 128-byte swizzle rule) made the gate-up launch 2.4 ms slower at the
+// expert layer's shapes, where the gather it saves takes 0.54 ms.
 //
 // What bounds it on the card: operations.  At the expert layer's shapes
 // (~180K rows a layer over 64 experts, N 2,816 or 2,048, K 2,048 or 1,408)
 // a launch does 2 M N K ~ 2 TFLOP over ~1 GB of operands: ~2.1 ms at 989
-// TFLOP/s against ~0.3 ms at 3.35 TB/s.  So the design keeps the tensor
-// cores fed:
+// TFLOP/s against ~0.3 ms at 3.35 TB/s (less in kSwiglu, which writes half
+// the columns).  So the design keeps the tensor cores fed:
 // - Tiles of 128 rows x 128 columns, 64 deep.  Each block owns one tile of
 //   one group.  The grid is (N / 128) x (ceil(M / 128) + E): an upper bound
 //   on the tiles of any split of M rows into E groups, read without waiting
@@ -34,8 +54,8 @@
 //   second mbarrier) once its wgmmas on it have completed.
 // - A tile's rows past its group's end belong to the next group (or lie
 //   past M, where TMA fills zeros): they are computed and not stored.
-// The kernel allocates nothing and does not synchronise; the C entry point
-// returns cudaGetLastError(), or a negative code where the tensor maps could
+// The kernel allocates nothing and does not synchronise; the C entry points
+// return cudaGetLastError(), or a negative code where the tensor maps could
 // not be made.
 
 #include <cuda.h>
@@ -57,6 +77,8 @@ constexpr int kTileA = kBM * kBK * 2;     // bytes of a stage's A tile
 constexpr int kTileB = kBN * kBK * 2;     // bytes of a stage's B tile
 constexpr int kStageBytes = kTileA + kTileB;
 constexpr int kSharedBytes = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+
+enum Epilogue { kStore, kSwiglu, kScatter };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -161,13 +183,26 @@ __device__ __forceinline__ bool find_tile(const int64_t* __restrict__ offsets, i
   return false;
 }
 
+// PyTorch's F.silu(g) * u on bfloat16 g and u: each op in float32, rounded to bfloat16
+__device__ __forceinline__ float silu_mul(float gate, float up) {
+  const float g = __bfloat162float(__float2bfloat16_rn(gate));
+  const float u = __bfloat162float(__float2bfloat16_rn(up));
+  const float s = __bfloat162float(__float2bfloat16_rn(g / (1.0f + expf(-g))));
+  return s * u;
+}
+
+// dest is null outside kScatter.  N is B's rows an expert (2I in kSwiglu);
+// ldo the row stride of out (I in kSwiglu, else N).
+template <int kEpilogue>
 __global__ void __launch_bounds__(kThreads, 1)
 grouped_gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-                    const int64_t* __restrict__ offsets, int E, int N, int K, __nv_bfloat16* __restrict__ out) {
+                    const int64_t* __restrict__ offsets, int E, int N, int K, const int64_t* __restrict__ dest,
+                    __nv_bfloat16* __restrict__ out, int ldo) {
   int group, rows;
   int64_t row0;
   if (!find_tile(offsets, E, blockIdx.y, &group, &row0, &rows)) return;
-  const int n0 = blockIdx.x * kBN;
+  // first output column of the block; in kSwiglu also its first gate row (up: + N/2)
+  const int n0 = blockIdx.x * (kEpilogue == kSwiglu ? kBN / 2 : kBN);
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (1024u - (smem_addr(smem_raw) & 1023u)) & 1023u;
@@ -188,13 +223,19 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_cons
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     if (threadIdx.x == 0) {  // the producer
+      const int b_row = group * N + n0;
       for (int kt = 0; kt < k_tiles; ++kt) {
         const int s = kt % kStages;
         if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) - 1) & 1);
         unsigned char* stage = tiles + s * kStageBytes;
         mbar_expect_tx(&full[s], kStageBytes);
         tma_load(stage, &map_a, &full[s], kt * kBK, static_cast<int>(row0));
-        tma_load(stage + kTileA, &map_b, &full[s], kt * kBK, group * N + n0);
+        if (kEpilogue == kSwiglu) {
+          tma_load(stage + kTileA, &map_b, &full[s], kt * kBK, b_row);
+          tma_load(stage + kTileA + kTileB / 2, &map_b, &full[s], kt * kBK, b_row + N / 2);
+        } else {
+          tma_load(stage + kTileA, &map_b, &full[s], kt * kBK, b_row);
+        }
       }
     }
     return;
@@ -224,13 +265,33 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_cons
   const int t = threadIdx.x % 128;
   const int r = c * 64 + (t / 32) * 16 + (t % 32) / 4;
   const int col = n0 + 2 * (t % 4);
-  __nv_bfloat16* o0 = out + (row0 + r) * static_cast<int64_t>(N) + col;
-  __nv_bfloat16* o8 = o0 + 8 * static_cast<int64_t>(N);
+  int64_t out_r = row0 + r, out_r8 = row0 + r + 8;
+  if (kEpilogue == kScatter) {
+    out_r = r < rows ? dest[out_r] : 0;
+    out_r8 = r + 8 < rows ? dest[out_r8] : 0;
+  }
+  __nv_bfloat16* o0 = out + out_r * static_cast<int64_t>(ldo) + col;
+  __nv_bfloat16* o8 = out + out_r8 * static_cast<int64_t>(ldo) + col;
+  if (kEpilogue == kSwiglu) {
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    if (r < rows) *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
-    if (r + 8 < rows)
-      *reinterpret_cast<__nv_bfloat162*>(o8 + 8 * j) = __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+    for (int j = 0; j < kBN / 16; ++j) {
+      const float* g = acc + 4 * j;
+      const float* u = acc + 4 * (j + kBN / 16);
+      if (r < rows)
+        *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
+            __floats2bfloat162_rn(silu_mul(g[0], u[0]), silu_mul(g[1], u[1]));
+      if (r + 8 < rows)
+        *reinterpret_cast<__nv_bfloat162*>(o8 + 8 * j) =
+            __floats2bfloat162_rn(silu_mul(g[2], u[2]), silu_mul(g[3], u[3]));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      if (r < rows)
+        *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+      if (r + 8 < rows)
+        *reinterpret_cast<__nv_bfloat162*>(o8 + 8 * j) = __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+    }
   }
 }
 
@@ -250,13 +311,13 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (rows, cols) row-major bf16 matrix read in (128 x 64) boxes, 128-byte swizzle
-int make_map(CUtensorMap* map, const void* base, int64_t rows, int64_t cols) {
+// a (rows, cols) row-major bf16 matrix read in (box_rows x 64) boxes, 128-byte swizzle
+int make_map(CUtensorMap* map, const void* base, int64_t rows, int64_t cols, int box_rows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -1;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {kBK, 128};
+  const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
                           elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -264,23 +325,43 @@ int make_map(CUtensorMap* map, const void* base, int64_t rows, int64_t cols) {
   return res == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(res);
 }
 
+// one launch of a mode over the M rows of a
+template <int kEpilogue>
+int launch(const void* a, const void* b, const void* offsets, const int64_t* dest, void* out, int64_t M, int E, int N,
+           int K, void* stream) {
+  if (M == 0) return 0;
+  CUtensorMap map_a, map_b;
+  int err = make_map(&map_a, a, M, K, kBM);
+  if (err == 0) err = make_map(&map_b, b, static_cast<int64_t>(E) * N, K, kEpilogue == kSwiglu ? kBN / 2 : kBN);
+  if (err != 0) return err;
+  // above 48 KB of shared memory a launch needs the attribute, set on the current device
+  const cudaError_t e = cudaFuncSetAttribute(grouped_gemm_kernel<kEpilogue>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSharedBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int ldo = kEpilogue == kSwiglu ? N / 2 : N;
+  const dim3 grid(ldo / (kEpilogue == kSwiglu ? kBN / 2 : kBN), static_cast<unsigned>((M + kBM - 1) / kBM + E));
+  grouped_gemm_kernel<kEpilogue><<<grid, kThreads, kSharedBytes, static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_b, static_cast<const int64_t*>(offsets), E, N, K, dest, static_cast<__nv_bfloat16*>(out), ldo);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // out (M, N) = the rows of each group of a (M, K) times that group's b (E, N, K)^T
 extern "C" int pecos_grouped_gemm(const void* a, const void* b, const void* offsets, void* out, int64_t M, int E,
                                   int N, int K, void* stream) {
-  if (M == 0) return 0;
-  CUtensorMap map_a, map_b;
-  int err = make_map(&map_a, a, M, K);
-  if (err == 0) err = make_map(&map_b, b, static_cast<int64_t>(E) * N, K);
-  if (err != 0) return err;
-  // above 48 KB of shared memory a launch needs the attribute, set on the current device
-  const cudaError_t e = cudaFuncSetAttribute(grouped_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             kSharedBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(N / kBN, static_cast<unsigned>((M + kBM - 1) / kBM + E));
-  grouped_gemm_kernel<<<grid, kThreads, kSharedBytes, static_cast<cudaStream_t>(stream)>>>(
-      map_a, map_b, static_cast<const int64_t*>(offsets), E, N, K, static_cast<__nv_bfloat16*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch<kStore>(a, b, offsets, nullptr, out, M, E, N, K, stream);
 }
 
+// act (M, N/2) = SiLU(gate) * up of each group's rows of a (M, K) times its b (E, N, K)^T,
+// gate rows :N/2, up rows N/2:
+extern "C" int pecos_grouped_gemm_swiglu(const void* a, const void* b, const void* offsets, void* out, int64_t M,
+                                         int E, int N, int K, void* stream) {
+  return launch<kSwiglu>(a, b, offsets, nullptr, out, M, E, N, K, stream);
+}
+
+// out[dest[r]] = row r of each group of a (M, K) times its b (E, N, K)^T, for r < offsets[E]
+extern "C" int pecos_grouped_gemm_scatter(const void* a, const void* b, const void* offsets, const void* dest,
+                                          void* out, int64_t M, int E, int N, int K, void* stream) {
+  return launch<kScatter>(a, b, offsets, static_cast<const int64_t*>(dest), out, M, E, N, K, stream);
+}

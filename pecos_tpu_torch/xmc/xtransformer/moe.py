@@ -17,18 +17,35 @@ its ``modeling_deepseek.py``):
 How the port runs it, with no Python loop over experts and nothing that
 waits for the card: the (token, expert) pairs are sorted by expert
 (``torch.sort``, stable), the group offsets found on the card
-(``torch.searchsorted``), the tokens gathered in that order, and the
-experts' gate and up projections (fused, 2 x the expert width) and their
-down projections run as two grouped GEMMs over all experts
-(``ops.grouped_gemm``, one launch each on the card).  The outputs go back to
-token order and are combined.  The pairs of padding tokens (``keep`` False)
-are sorted past the last expert, so the grouped GEMMs skip them, and those
-tokens' outputs are zero: in an encoder that reads padding nowhere (right
-padding under a causal mask, pooling over real tokens) this changes no
-output that is read.
+(``torch.searchsorted``), and three hand-written kernels do the rest, so
+that of the pairs' rows only the gathered tokens, act and the down
+projection's output cross device memory:
 
-Span ``pecos.moe`` covers each layer's enqueue and counter
-``pecos.moe.layers`` counts the layers run.  Two counts are kept on the
+1. ``ops.grouped_gemm_swiglu``: the experts' gate and up projections (fused,
+   2 x the expert width) as one grouped GEMM over all experts of the pairs'
+   token rows (``x[order // k]``, a gather), ``silu(gate) * up`` taken in its
+   epilogue: act (pairs, width), rounded as ``F.silu(h[:, :I]) * h[:, I:]``
+   rounds the bfloat16 h, which is never stored.  Bound by its operations.
+2. ``ops.grouped_gemm_scatter``: the down projections, each pair's row
+   stored in its token slot (row ``order[r]`` = t k + j of a (T k, H)
+   buffer), the token order the combine reads.  Bound by its operations.
+3. ``ops.expert_combine``: for each token the gate-weighted sum of its k
+   rows in float32, cast to the model's dtype, plus the shared experts'
+   output, in one pass.  Bound by its bytes.
+
+The pairs of padding tokens (``keep`` False) are sorted past the last
+expert, so the grouped GEMMs neither compute nor store them and the combine
+reads none of their slots; those tokens' outputs are the shared experts'
+alone: in an encoder that reads padding nowhere (right padding under a
+causal mask, pooling over real tokens) this changes no output that is
+read.  On the CPU the layer runs the unfused ops the kernels replace, with
+the same roundings: ``ops.grouped_gemm``'s plain version (``torch.matmul``
+a group) for each projection, SiLU and the product, ``index_put``, then the
+combine's plain version (a float32 ``bmm``, ``where``, the cast and the add).
+
+Span ``pecos.moe`` covers each layer's enqueue; counter ``pecos.moe.layers``
+counts the layers run and ``pecos.moe.fused`` those whose three kernels
+launched (0 on the CPU).  Two counts are kept on the
 card, never read inside a forward: the pairs computed and the busiest
 expert's pairs, each summed over layer forwards.  ``take_counts(device)``
 moves them into counters ``pecos.moe.pairs`` and ``pecos.moe.max_load``;
@@ -42,7 +59,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from pecos_tpu_torch.ops.grouped_gemm import grouped_gemm
+from pecos_tpu_torch.ops.expert_combine import expert_combine
+from pecos_tpu_torch.ops.grouped_gemm import grouped_gemm, grouped_gemm_scatter, grouped_gemm_swiglu
 from pecos_tpu_torch.utils import profile_util
 
 # per device: int64 (2,) on it, [pairs computed, busiest expert's pairs]
@@ -138,27 +156,32 @@ class ExpertLayer(torch.nn.Module):
         self.shared_experts = SwiGLU(hidden, n_shared * width, dtype=dtype, device=device)
 
     def routed(self, x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-        """The routed experts' weighted sum for tokens x (T, H); a token
-        whose ``keep`` (T,) is False is computed by no expert and gets zeros."""
-        T, H = x.shape
+        """The layer's output for tokens x (T, H): the routed experts'
+        weighted sum, zero for a token whose ``keep`` (T,) is False (no
+        expert computes it), plus the shared experts' output; the combine
+        adds the two."""
+        T = x.shape[0]
         k, E, I = self.top_k, self.n_experts, self.experts.width
         experts, gates = route(x, self.gate.weight, self.gate.e_score_correction_bias, k, self.scaling, self.normalize)
         flat = torch.where(keep[:, None].expand(T, k).reshape(-1), experts.reshape(-1), E)
         sorted_experts, order = torch.sort(flat, stable=True)
         offsets = torch.searchsorted(sorted_experts, torch.arange(E + 1, device=x.device))
         _add_counts(offsets)
-        h = grouped_gemm(x[order // k], self.experts.gate_up, offsets)
+        gathered, shared = x[order // k], self.shared_experts(x)
+        if x.device.type == "cuda":
+            act = grouped_gemm_swiglu(gathered, self.experts.gate_up, offsets)
+            out = expert_combine(grouped_gemm_scatter(act, self.experts.down, offsets, order), gates, keep, shared)
+            profile_util.count("pecos.moe.fused")
+            return out
+        h = grouped_gemm(gathered, self.experts.gate_up, offsets)
         y = grouped_gemm(F.silu(h[:, :I]) * h[:, I:], self.experts.down, offsets)
         pairs = torch.empty_like(y)
         pairs[order] = y
-        out = torch.bmm(gates[:, None, :], pairs.view(T, k, H).float())[:, 0]
-        return torch.where(keep[:, None], out, 0.0).to(x.dtype)
+        return expert_combine(pairs, gates, keep, shared)
 
     def forward(self, x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
         """x (..., H); ``keep`` (...) bool, False for the tokens no expert computes."""
         with profile_util.span("pecos.moe"):
             profile_util.count("pecos.moe.layers")
             shape = x.shape
-            flat = x.reshape(-1, shape[-1])
-            out = self.routed(flat, keep.reshape(-1)) + self.shared_experts(flat)
-            return out.view(shape)
+            return self.routed(x.reshape(-1, shape[-1]), keep.reshape(-1)).view(shape)

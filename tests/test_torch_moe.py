@@ -199,6 +199,25 @@ def test_pairs_and_the_busiest_expert_are_counted_on_the_device():
     profile_util.reset()
 
 
+def test_layers_and_fused_layers_are_counted():
+    """``pecos.moe.layers`` counts every expert layer forward and
+    ``pecos.moe.fused`` those that ran the fused kernels: none on the CPU,
+    where the unfused ops run."""
+    from pecos_tpu_torch.utils import profile_util
+
+    profile_util.reset()
+    enc = encoder(dtype=torch.bfloat16)
+    ids, mask = tokens(6)
+    with torch.no_grad():
+        enc(ids, mask)
+        enc(ids, mask)
+    c = profile_util.snapshot()["counters"]
+    assert c["pecos.moe.layers"] == 4
+    assert c.get("pecos.moe.fused", 0) == 0
+    moe.take_counts("cpu")
+    profile_util.reset()
+
+
 def test_from_seed_draws_each_tensor_from_its_own_seed():
     a = network.random_encoder("deepseek_v3", TINY, seed=11)
     b = network.random_encoder("deepseek_v3", TINY, seed=11, dtype=torch.bfloat16)
@@ -331,8 +350,15 @@ def test_cuda_forward_of_two_blocks_at_moonlight_widths_never_waits_for_the_card
     """Moonlight-16B-A3B at its published widths in bfloat16: two 256-text
     forwards of 128 slots (pads at the ends of some texts) under
     ``set_sync_debug_mode("error")``, which raises on any call that waits
-    for the card; 2 grouped GEMM launches an expert layer and forward."""
+    for the card; 2 grouped GEMM launches an expert layer and forward (the
+    SwiGLU and the scatter-storing modes) and one combine, every layer
+    counted as fused."""
+    from pecos_tpu_torch.ops.expert_combine import expert_combine
     from pecos_tpu_torch.ops.grouped_gemm import grouped_gemm
+    from pecos_tpu_torch.utils import profile_util
+
+    def launches():
+        return grouped_gemm.launches, expert_combine.launches
 
     with open(os.path.join(REPO, "portbench", "configs", "xtransformer-moonlight-wiki500k.json")) as f:
         cfg = json.load(f)
@@ -345,7 +371,8 @@ def test_cuda_forward_of_two_blocks_at_moonlight_widths_never_waits_for_the_card
         lengths = torch.randint(8, 129, (256,), generator=g, device=card)
         blocks.append((ids, (torch.arange(128, device=card)[None, :] < lengths[:, None]).long()))
     torch.cuda.synchronize(card)
-    before = grouped_gemm.launches
+    before = launches()
+    profile_util.reset()
     torch.cuda.set_sync_debug_mode("error")
     try:
         with torch.no_grad():
@@ -354,5 +381,72 @@ def test_cuda_forward_of_two_blocks_at_moonlight_widths_never_waits_for_the_card
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize(card)
     sparse = mc["num_hidden_layers"] - mc["first_k_dense_replace"]
-    assert grouped_gemm.launches - before == 2 * 2 * sparse
+    after = launches()
+    assert (after[0] - before[0], after[1] - before[1]) == (2 * 2 * sparse, 2 * sparse)
+    c = profile_util.snapshot()["counters"]
+    assert c["pecos.moe.fused"] == c["pecos.moe.layers"] == 2 * sparse
     assert all(bool(o.isfinite().all()) and o.shape == (256, mc["hidden_size"]) for o in out)
+    profile_util.reset()
+
+
+def unfused_layer(layer, x, keep):
+    """The expert layer as it ran before its fused kernels: the gather, the
+    plain-store grouped GEMM, SiLU and the product, the kernel again, the
+    rows put back in token order, a float32 bmm, where, the cast and the add
+    of the shared experts.  Returns the output, act and the token-ordered
+    rows, with the offsets, the order and the gates."""
+    from pecos_tpu_torch.ops.grouped_gemm import grouped_gemm
+
+    T, H = x.shape
+    k, E, I = layer.top_k, layer.n_experts, layer.experts.width
+    experts, gates = moe.route(x, layer.gate.weight, layer.gate.e_score_correction_bias, k, layer.scaling,
+                               layer.normalize)
+    flat = torch.where(keep[:, None].expand(T, k).reshape(-1), experts.reshape(-1), E)
+    sorted_experts, order = torch.sort(flat, stable=True)
+    offsets = torch.searchsorted(sorted_experts, torch.arange(E + 1, device=x.device))
+    h = grouped_gemm(x[order // k], layer.experts.gate_up, offsets)
+    act = torch.nn.functional.silu(h[:, :I]) * h[:, I:]
+    y = grouped_gemm(act, layer.experts.down, offsets)
+    pairs = torch.empty_like(y)
+    pairs[order] = y
+    routed = torch.bmm(gates[:, None, :], pairs.view(T, k, H).float())[:, 0]
+    out = torch.where(keep[:, None], routed, 0.0).to(x.dtype) + layer.shared_experts(x)
+    return out, act, pairs, offsets, order, gates
+
+
+def test_cuda_expert_layer_within_a_unit_of_the_unfused_path_at_moonlight_widths(card):
+    """One expert layer of Moonlight-16B-A3B (hidden 2,048, 64 experts of
+    1,408, top-6, 2 shared) over 256 texts of 128 slots, ~7% pads: act and
+    the token-ordered rows of the fused kernels bit-equal to the unfused
+    path's, the output within a unit of bfloat16's last place (the combine
+    sums in order, the bmm in its own), the share that differs printed; the
+    pads' slots, which no kernel writes, set to NaN change no output."""
+    from pecos_tpu_torch.ops import grouped_gemm as gg
+    from pecos_tpu_torch.ops.expert_combine import expert_combine
+
+    torch.manual_seed(0)
+    H, I, E, k = 2048, 1408, 64, 6
+    layer = moe.ExpertLayer(H, I, E, k, 2, 2.446, device=card, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p in layer.parameters():
+            torch.nn.init.normal_(p, std=0.02)
+        layer.gate.e_score_correction_bias.normal_(std=0.01)
+        T = 256 * 128
+        x = torch.randn((T, H), device=card).to(torch.bfloat16)
+        keep = torch.rand(T, device=card) >= 0.07
+        got = layer(x, keep)
+        want, want_act, want_pairs, offsets, order, gates = unfused_layer(layer, x, keep)
+        real = int(offsets[-1])
+        act = gg.grouped_gemm_swiglu(x[order // k], layer.experts.gate_up, offsets)
+        pairs = gg.grouped_gemm_scatter(act, layer.experts.down, offsets, order)
+        pairs[order[real:]] = float("nan")
+        again = expert_combine(pairs, gates, keep, layer.shared_experts(x))
+    torch.cuda.synchronize(card)
+    assert torch.equal(act[:real], want_act[:real])
+    assert torch.equal(pairs[order[:real]], want_pairs[order[:real]])
+    ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+    same_sign = (got.view(torch.int16) < 0) == (want.view(torch.int16) < 0)
+    print(f"expert layer: {float((got != want).float().mean())!r} of the outputs differ from the unfused path's, "
+          f"{real} pairs")
+    assert bool(((ulps <= 1) & same_sign | (got == want)).all())
+    assert bool(got.isfinite().all()) and torch.equal(again, got)
